@@ -1,0 +1,62 @@
+"""The weight bridge: a flax GridNet parameter tree -> the port's state dict.
+
+The port's modules carry the flax module and parameter names, so a flax
+path ``col_1/down_01/Conv_0/kernel`` is the state-dict key
+``col_1.down_01.Conv_0.kernel``, and the arrays keep their flax layout
+(HWIO kernels, (Co,) biases, scalar PReLU slopes): kernel A and kernel B
+read HWIO directly, so nothing is repacked.
+
+``params_from_flax`` takes either form the JAX package produces:
+
+- the nested tree of arrays, with or without its top-level ``"params"``
+  key (``variables`` or ``variables["params"]``);
+- the ``"/"``-joined flat mapping that ``tools/persist_artifacts.py``
+  writes (``artifacts_store/flagship_096.npz``: keys such as
+  ``params/col_1/down_01/Conv_0/kernel``, plus ``__epoch__``-style
+  metadata, which is skipped).
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: Mapping, prefix: tuple = ()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (str(k),)))
+        else:
+            out["/".join(prefix + (str(k),))] = v
+    return out
+
+
+def _to_tensor(key: str, arr) -> torch.Tensor:
+    """f32 tensor of one leaf. A ``key::bfloat16`` entry of a snapshot
+    holds the raw bf16 bytes (numpy has no bf16 dtype)."""
+    a = np.asarray(arr)
+    if key.endswith("::bfloat16"):
+        raw = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        return raw.view(torch.bfloat16).float()
+    if "::" in key:
+        raise ValueError(f"unsupported stored dtype in key {key!r}")
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def params_from_flax(tree_or_flat: Mapping) -> dict:
+    """State dict (``{"lateral_in.Conv_0.kernel": tensor, ...}``, f32 on the
+    CPU) for ``GridNet.load_state_dict`` from a flax tree or its flat form.
+    A state dict passes through unchanged."""
+    flat = _flatten(tree_or_flat)
+    state = {}
+    for key, leaf in flat.items():
+        if key.startswith("__"):
+            continue
+        path = key.split("::", 1)[0].split("/")
+        if path[0] == "params":
+            path = path[1:]
+        state[".".join(path)] = _to_tensor(key, leaf)
+    return state

@@ -1,0 +1,222 @@
+"""GridNet building blocks as torch modules (NHWC activations).
+
+The counterparts of the JAX package's ``models/blocks.py``, with the flax
+module and parameter names (``PReLU_0/alpha``, ``Conv_0/kernel``,
+``Conv_0/bias``, ...) so that the weight bridge (io/weights.py) maps one to
+one. Kernels are kept in flax's HWIO layout, which is the layout kernel A
+and kernel B read.
+
+Every 3x3 conv runs through the hand-written kernels: a channel-preserving
+LateralBlock without shortcut is one launch of kernel B (``fused_lateral``),
+every other conv one launch of kernel A (``prelu_conv3x3``) with the PReLU
+before it fused in. A block takes the grid's additive fusion as
+``residual`` and adds it in the last kernel's epilogue. ``plain=True``
+runs the kernels' plain PyTorch versions instead (the on-card reference).
+
+Inference only: the kernels have no backward yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops.coords import add_coord_channels
+from ..ops.kernels import (fused_lateral, fused_lateral_plain, prelu_conv3x3,
+                           prelu_conv3x3_plain)
+from ..ops.kernels.conv3x3 import prelu_plain
+from ..ops.resize import upsample2x
+
+
+def _conv_fn(plain: bool):
+    return prelu_conv3x3_plain if plain else prelu_conv3x3
+
+
+def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Stand-alone scalar-alpha PReLU in x's dtype, where no conv follows
+    directly to fuse it into (the Coord blocks append coordinates
+    between the two)."""
+    return prelu_plain(x, alpha).to(x.dtype)
+
+
+class PReLU(nn.Module):
+    """One shared slope, init 0.25 (torch nn.PReLU default)."""
+
+    def __init__(self, init_value: float = 0.25):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.tensor(float(init_value)))
+
+
+class Conv3x3(nn.Module):
+    """Parameters of one flax ``nn.Conv(features, (3, 3))``: ``kernel``
+    (3, 3, Ci, Co) and ``bias`` (Co,), kept in f32."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.kernel = nn.Parameter(
+            torch.randn(3, 3, cin, cout) / math.sqrt(9 * cin))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self._cast_key = None
+        self._cast = None
+
+    def weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """The kernel in the activation dtype, cast once and kept until the
+        parameter changes."""
+        k = self.kernel.detach()
+        if k.dtype == dtype:
+            return k
+        key = (dtype, k.device, k.data_ptr(), k._version)
+        if self._cast_key != key:
+            self._cast = k.to(dtype).contiguous()
+            self._cast_key = key
+        return self._cast
+
+    def forward(self, x: torch.Tensor, alpha: Optional[nn.Parameter] = None,
+                residual: Optional[torch.Tensor] = None, stride: int = 1,
+                plain: bool = False) -> torch.Tensor:
+        a = None if alpha is None else alpha.detach()
+        return _conv_fn(plain)(x, self.weight(x.dtype), self.bias.detach(),
+                               a, residual, stride)
+
+
+class LateralBlock(nn.Module):
+    """PReLU -> conv -> PReLU -> conv, optional conv shortcut."""
+
+    def __init__(self, cin: int, out_ch: int, shortcut_conv: bool = False):
+        super().__init__()
+        self.PReLU_0 = PReLU()
+        self.Conv_0 = Conv3x3(cin, out_ch)
+        self.PReLU_1 = PReLU()
+        self.Conv_1 = Conv3x3(out_ch, out_ch)
+        if shortcut_conv:
+            self.Conv_2 = Conv3x3(cin, out_ch)
+        self.fused = not shortcut_conv and cin == out_ch
+
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None,
+                plain: bool = False) -> torch.Tensor:
+        if self.fused:
+            fn = fused_lateral_plain if plain else fused_lateral
+            c0, c1 = self.Conv_0, self.Conv_1
+            return fn(x, c0.weight(x.dtype), c0.bias.detach(),
+                      self.PReLU_0.alpha.detach(), c1.weight(x.dtype),
+                      c1.bias.detach(), self.PReLU_1.alpha.detach(),
+                      residual)
+        s = residual
+        if hasattr(self, "Conv_2"):
+            s = self.Conv_2(x, residual=residual, plain=plain)
+        y = self.Conv_0(x, self.PReLU_0.alpha, plain=plain)
+        return self.Conv_1(y, self.PReLU_1.alpha, residual=s, plain=plain)
+
+
+class DownSamplingBlock(nn.Module):
+    """PReLU -> stride-2 conv -> PReLU -> conv."""
+
+    def __init__(self, cin: int, out_ch: int):
+        super().__init__()
+        self.PReLU_0 = PReLU()
+        self.Conv_0 = Conv3x3(cin, out_ch)
+        self.PReLU_1 = PReLU()
+        self.Conv_1 = Conv3x3(out_ch, out_ch)
+
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None,
+                plain: bool = False) -> torch.Tensor:
+        y = self.Conv_0(x, self.PReLU_0.alpha, stride=2, plain=plain)
+        return self.Conv_1(y, self.PReLU_1.alpha, residual=residual,
+                           plain=plain)
+
+
+class UpSamplingBlock(nn.Module):
+    """x2 upsample (align-corners bilinear, or nearest in the rollout's
+    opt-in mode) -> PReLU -> conv -> PReLU -> conv."""
+
+    def __init__(self, cin: int, out_ch: int):
+        super().__init__()
+        self.PReLU_0 = PReLU()
+        self.Conv_0 = Conv3x3(cin, out_ch)
+        self.PReLU_1 = PReLU()
+        self.Conv_1 = Conv3x3(out_ch, out_ch)
+
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None,
+                plain: bool = False, upsample: str = "bilinear"
+                ) -> torch.Tensor:
+        y = self.Conv_0(upsample2x(x, upsample), self.PReLU_0.alpha,
+                        plain=plain)
+        return self.Conv_1(y, self.PReLU_1.alpha, residual=residual,
+                           plain=plain)
+
+
+class CoordConv(nn.Module):
+    """Conv over the input with two coordinate channels appended."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.Conv_0 = Conv3x3(cin + 2, cout)
+
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None, stride: int = 1,
+                plain: bool = False) -> torch.Tensor:
+        return self.Conv_0(add_coord_channels(x), residual=residual,
+                           stride=stride, plain=plain)
+
+
+class CoordLateralBlock(nn.Module):
+    """coordconv -> PReLU -> coordconv, optional coordconv shortcut (no
+    leading PReLU)."""
+
+    def __init__(self, cin: int, out_ch: int, shortcut_conv: bool = False):
+        super().__init__()
+        self.CoordConv_0 = CoordConv(cin, out_ch)
+        self.PReLU_0 = PReLU()
+        self.CoordConv_1 = CoordConv(out_ch, out_ch)
+        if shortcut_conv:
+            self.CoordConv_2 = CoordConv(cin, out_ch)
+
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None,
+                plain: bool = False) -> torch.Tensor:
+        s = residual
+        if hasattr(self, "CoordConv_2"):
+            s = self.CoordConv_2(x, residual=residual, plain=plain)
+        y = prelu(self.CoordConv_0(x, plain=plain), self.PReLU_0.alpha)
+        return self.CoordConv_1(y, residual=s, plain=plain)
+
+
+class CoordDownSamplingBlock(nn.Module):
+    def __init__(self, cin: int, out_ch: int):
+        super().__init__()
+        self.PReLU_0 = PReLU()
+        self.CoordConv_0 = CoordConv(cin, out_ch)
+        self.PReLU_1 = PReLU()
+        self.CoordConv_1 = CoordConv(out_ch, out_ch)
+
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None,
+                plain: bool = False) -> torch.Tensor:
+        y = self.CoordConv_0(prelu(x, self.PReLU_0.alpha), stride=2,
+                             plain=plain)
+        return self.CoordConv_1(prelu(y, self.PReLU_1.alpha),
+                                residual=residual, plain=plain)
+
+
+class CoordUpSamplingBlock(nn.Module):
+    def __init__(self, cin: int, out_ch: int):
+        super().__init__()
+        self.PReLU_0 = PReLU()
+        self.CoordConv_0 = CoordConv(cin, out_ch)
+        self.PReLU_1 = PReLU()
+        self.CoordConv_1 = CoordConv(out_ch, out_ch)
+
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None,
+                plain: bool = False, upsample: str = "bilinear"
+                ) -> torch.Tensor:
+        y = prelu(upsample2x(x, upsample), self.PReLU_0.alpha)
+        y = self.CoordConv_0(y, plain=plain)
+        return self.CoordConv_1(prelu(y, self.PReLU_1.alpha),
+                                residual=residual, plain=plain)

@@ -1,0 +1,180 @@
+"""Serving API: GridNet layout/frame futures from flax weights (the JAX
+package's ``serving.py``).
+
+One ``LayoutPredictor`` owns a GridNet on one device and answers batched
+requests at a fixed batch: a smaller request is padded to it by repeating
+its last example, and the padding is sliced off on the device before the
+fetch. A request goes up as one packed array and comes back as one packed
+array; with ``quantize_transfer`` both are uint8 (frames at 1/255, layout
+ids exact while ``n_classes <= 256``).
+
+Example:
+    from video_layout_generation_tpu_torch.io.weights import params_from_flax
+    state = params_from_flax(flat_npz_of_an_8_channel_gridnet)
+    predictor = LayoutPredictor("GridNet", state)
+    frames, layouts = predictor.predict(img1, img2, seg1, seg2)
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Mapping, Tuple
+
+import numpy as np
+import torch
+
+from .io.weights import params_from_flax
+from .models import get_model_cls
+from .train.assemble import denormalize_image, normalize_image
+from .train.rollout import make_rollout_fn
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; raises for a CUDA device when the process
+    has none, instead of running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but no CUDA device is available; "
+                           "pass device='cpu' to run the plain versions")
+    return dev
+
+
+class LayoutPredictor:
+    def __init__(self, arch: str, params: Mapping, n_frames: int = 8,
+                 batch: int = 16, image_hw=(256, 256),
+                 filters_level=(32, 64, 96), use_bf16: bool = True,
+                 hned=None, hned_params=None, use_edges: bool = False,
+                 edge_scale: int = 1, quantize_transfer: bool = False,
+                 n_classes: int = 20, upsample: str = "bilinear",
+                 mesh=None, device="cuda", plain: bool = False):
+        """``params``: the flax tree, its flat ``"/"``-joined form, or a
+        state dict from ``params_from_flax``, of an 8-channel GridNet (the
+        no-edge rollout's input). ``plain=True`` runs the kernels' plain
+        PyTorch versions (the on-card reference)."""
+        if arch not in ("GridNet", "CoordGridNet"):
+            raise ValueError(f"serving supports GridNet archs, got {arch}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-device serving comes with the data-parallel port")
+        if use_edges or hned is not None or hned_params is not None:
+            raise NotImplementedError(
+                "edge-mode serving needs the HNED edge net, which the port "
+                "does not have yet")
+        del edge_scale  # an edge-mode option
+        self.device = resolve_device(device)
+        self.arch = arch
+        self.n_frames = n_frames
+        self.batch = batch
+        self.quantize_transfer = quantize_transfer
+        self.n_classes = n_classes
+        self.hw = tuple(image_hw)
+        dtype = torch.bfloat16 if use_bf16 else None
+        self.model = get_model_cls(arch)(
+            n_channels=8, filters_level=tuple(filters_level),
+            dtype=dtype)
+        self.model.load_state_dict(params_from_flax(params), strict=True)
+        self.model.to(self.device).eval()
+        self._rollout = make_rollout_fn(self.model, n_frames=n_frames,
+                                        upsample=upsample, plain=plain)
+        # uint8 both ways; n_classes > 256 would wrap ids in uint8
+        self._quantized_serve = quantize_transfer and n_classes <= 256
+
+    @classmethod
+    def from_checkpoint(cls, path: str, arch: str = "GridNet",
+                        **kw) -> "LayoutPredictor":
+        raise NotImplementedError(
+            "orbax checkpoints come with the checkpoint port; load a "
+            "tools/persist_artifacts.py snapshot with numpy and pass it as "
+            "params")
+
+    @torch.inference_mode()
+    def _serve(self, x: np.ndarray, n: int) -> torch.Tensor:
+        """One packed request on the device -> one packed result there."""
+        x = torch.from_numpy(x).to(self.device)
+        if self._quantized_serve:
+            x = x.float()
+            x = torch.cat([x[..., 0:6] / 255.0, x[..., 6:8]], dim=-1)
+        i1 = normalize_image(x[..., 0:3])
+        i2 = normalize_image(x[..., 3:6])
+        s1, s2 = x[..., 6:7], x[..., 7:8]
+        imgs, segs = self._rollout(i1, i2, s1, s2)
+        f = denormalize_image(imgs[:n]).clamp(0.0, 1.0)
+        lay = segs[:n]
+        if self._quantized_serve:
+            return torch.cat([(f * 255.0 + 0.5).to(torch.uint8),
+                              lay.to(torch.uint8)], dim=-1)
+        return torch.cat([f, lay], dim=-1)
+
+    def _pack_request(self, img1, img2, seg1, seg2):
+        """Host-side packing of one request into the single upload array."""
+        n = img1.shape[0]
+        if n > self.batch:
+            raise ValueError(f"request batch {n} > compiled batch "
+                             f"{self.batch}; shard the request")
+
+        def pad(x):
+            if x.shape[0] == self.batch:
+                return x
+            return np.concatenate(
+                [x, np.repeat(x[-1:], self.batch - x.shape[0], axis=0)])
+
+        x = np.concatenate(
+            [pad(np.asarray(img1, np.float32)),
+             pad(np.asarray(img2, np.float32)),
+             pad(np.asarray(seg1, np.float32))[..., None],
+             pad(np.asarray(seg2, np.float32))[..., None]], axis=-1)
+        if self._quantized_serve:
+            x = np.concatenate(
+                [x[..., 0:6] * 255.0 + 0.5, x[..., 6:8]],
+                axis=-1).astype(np.uint8)
+        return x, n
+
+    def _decode_out(self, out: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Host-side decode of the single fetched array."""
+        if self._quantized_serve:
+            frames = out[..., :3].astype(np.float32) / 255.0
+        else:
+            frames = out[..., :3]
+        return frames, out[..., 3].astype(np.int32)
+
+    def predict(self, img1: np.ndarray, img2: np.ndarray,
+                seg1: np.ndarray, seg2: np.ndarray
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        """img*: (N, H, W, 3) RGB in [0,1]; seg*: (N, H, W) int class ids.
+        Returns (frames (N, T, H, W, 3) in [0,1], layouts (N, T, H, W))."""
+        x, n = self._pack_request(img1, img2, seg1, seg2)
+        return self._decode_out(self._serve(x, n).cpu().numpy())
+
+    def predict_pipelined(self, requests, depth: int = 2):
+        """Yield one (frames, layouts) per request, in order, with up to
+        ``depth`` requests enqueued on the device at a time: kernel launches
+        return before the device finishes, so request i+1 is packed,
+        uploaded and enqueued while request i still computes. Results equal
+        per-request ``predict`` calls."""
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        return self._predict_pipelined(requests, depth)
+
+    def predict_many(self, img1, img2, seg1, seg2, depth: int = 2
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Requests larger than the fixed batch: split into batch-sized
+        chunks, pipeline them and reassemble (N, ...) outputs."""
+        n = img1.shape[0]
+        b = self.batch
+        chunks = ((img1[i:i + b], img2[i:i + b],
+                   seg1[i:i + b], seg2[i:i + b])
+                  for i in range(0, n, b))
+        outs = list(self.predict_pipelined(chunks, depth=depth))
+        frames = np.concatenate([f for f, _ in outs])
+        layouts = np.concatenate([l for _, l in outs])
+        return frames, layouts
+
+    def _predict_pipelined(self, requests, depth: int):
+        inflight = deque()
+        for req in requests:
+            if len(inflight) >= depth:
+                yield self._decode_out(inflight.popleft().cpu().numpy())
+            x, n = self._pack_request(*req)
+            inflight.append(self._serve(x, n))
+        while inflight:
+            yield self._decode_out(inflight.popleft().cpu().numpy())

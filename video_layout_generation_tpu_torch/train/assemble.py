@@ -1,0 +1,57 @@
+"""Input assembly and normalization constants (NHWC), as the JAX package's
+``train/assemble.py``: ImageNet normalization of frames, the model-output
+affine map, and the channel concatenation [edge1, seg1, frame1, frame2,
+seg2, edge2] (10 channels with edges) or [seg1, frame1, frame2, seg2]
+(8 channels, the rollout contract)."""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+OUT_MEAN = (-0.03, -0.088, -0.188)
+OUT_STD = (0.448, 0.448, 0.450)
+
+
+@functools.lru_cache(maxsize=None)
+def _const(vals: tuple, device: torch.device) -> torch.Tensor:
+    # made once per device: a copy from the host inside the rollout loop
+    # would wait for the device on every frame
+    return torch.tensor(vals, dtype=torch.float32, device=device)
+
+
+def _c(vals, like: torch.Tensor) -> torch.Tensor:
+    return _const(vals, like.device)
+
+
+def normalize_image(img: torch.Tensor) -> torch.Tensor:
+    """[0,1] RGB -> ImageNet-normalized."""
+    return (img - _c(IMAGENET_MEAN, img)) / _c(IMAGENET_STD, img)
+
+
+def denormalize_image(img: torch.Tensor) -> torch.Tensor:
+    """ImageNet-normalized -> [0,1]-range RGB."""
+    return img * _c(IMAGENET_STD, img) + _c(IMAGENET_MEAN, img)
+
+
+def normalize_model_output(img: torch.Tensor) -> torch.Tensor:
+    """Map the raw img head output into ImageNet-normalized space."""
+    return (img - _c(OUT_MEAN, img)) / _c(OUT_STD, img)
+
+
+def assemble_model_input(seg1: torch.Tensor, frame1: torch.Tensor,
+                         frame2: torch.Tensor, seg2: torch.Tensor,
+                         edge1: Optional[torch.Tensor] = None,
+                         edge2: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Concatenate the model input channels. Frames are ImageNet-normalized,
+    segs float class ids (N,H,W,1), edges the fused HNED map or None."""
+    if edge1 is not None:
+        parts = [edge1, seg1, frame1, frame2, seg2, edge2]
+    else:
+        parts = [seg1, frame1, frame2, seg2]
+    return torch.cat(parts, dim=-1)
