@@ -20,6 +20,7 @@ from video_layout_generation_tpu.serving import \
     LayoutPredictor as JaxPredictor
 from video_layout_generation_tpu_torch.serving import LayoutPredictor
 from video_layout_generation_tpu_torch.train.rollout import make_rollout_fn
+from video_layout_generation_tpu_torch.train.steps import make_train_step
 
 from test_torch_gridnet import FILTERS, random_flax_params
 
@@ -83,14 +84,19 @@ def test_predict_rejects_oversized_batch(params):
 
 def test_unported_options_raise(params):
     with pytest.raises(NotImplementedError):
-        LayoutPredictor("GridNet", params, device="cpu", use_edges=True,
-                        **KW)
-    with pytest.raises(NotImplementedError):
         LayoutPredictor("GridNet", params, device="cpu", mesh=object(),
                         **KW)
+    with pytest.raises(NotImplementedError):
+        LayoutPredictor.from_checkpoint("/nonexistent")
+    with pytest.raises(NotImplementedError):
+        make_train_step(lambda x: x, None, None)
     with pytest.raises(ValueError, match="GridNet"):
         LayoutPredictor("UNet", params, device="cpu", **KW)
-    with pytest.raises(NotImplementedError):
+    # edge mode is ported; what it still refuses is a missing edge net
+    with pytest.raises(ValueError, match="HNED"):
+        LayoutPredictor("GridNet", params, device="cpu", use_edges=True,
+                        **KW)
+    with pytest.raises(ValueError, match="HNED"):
         make_rollout_fn(lambda x: x, use_edges=True)
 
 
@@ -111,8 +117,32 @@ def test_port_imports_no_jax():
         "('jax', 'flax', 'optax', 'orbax')]\n"
         "assert not bad, bad\n"
         "assert 'video_layout_generation_tpu' not in sys.modules\n"
-        "print(len([k for k in sys.modules if k.startswith(pkg.__name__)]))\n")
+        "print(*sorted(k[len(pkg.__name__) + 1:] for k in sys.modules "
+        "if k.startswith(pkg.__name__ + '.')))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    imported = set(out.stdout.split())
+    assert len(imported) >= 30
+    assert {"serving", "device", "train.rollout", "train.steps", "train.trainer",
+            "models.gridnet", "models.hned", "losses.ssim", "losses.pixel",
+            "losses.ce", "losses.vgg", "losses.combined", "ops.pooling",
+            "ops.resize", "ops.kernels.ssim", "ops.kernels.conv3x3",
+            "ops.kernels.lateral", "evaluation.metrics",
+            "io.weights"} <= imported
+
+
+def test_chip_smoke_imports_no_jax():
+    """The on-card script names no JAX package in its imports."""
+    import ast
+    from pathlib import Path
+    src = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    roots = set()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert not roots & {"jax", "flax", "optax", "orbax",
+                        "video_layout_generation_tpu"}
+    assert "video_layout_generation_tpu_torch" in roots

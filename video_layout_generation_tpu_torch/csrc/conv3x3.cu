@@ -1,5 +1,7 @@
 // Kernel A: y = conv3x3(prelu(x, alpha)) + bias [+ residual], zero padding 1,
-// stride 1 or 2, NHWC bf16 in and out, f32 accumulation.
+// stride 1 or 2, NHWC bf16 in and out, f32 accumulation; with `relu` the
+// result is clamped at zero in the epilogue (the conv -> ReLU layers of VGG19
+// and HNED).
 //
 // Replaces the TPU kernels
 //   video_layout_generation_tpu/ops/pallas/conv_packed.py:_fused_impl
@@ -43,7 +45,7 @@ prelu_conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
                      const __nv_bfloat16* __restrict__ res,
                      __nv_bfloat16* __restrict__ out, int h, int wd, int ci,
                      int co, int stride, int ho, int wo, int tiles_w,
-                     int tiles_h) {
+                     int tiles_h, bool relu) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   const int cs = vlg::smem_pixel_stride(ci);
@@ -85,7 +87,7 @@ prelu_conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
       const int ox = ox0 + p % TILE_W;
       if (oy < ho && ox < wo) {
         const size_t o = (((size_t)n * ho + oy) * wo + ox) * co + co0;
-        vlg::store_item<VEC>(acc[j], bias, res, out, o, co, co0);
+        vlg::store_item<VEC>(acc[j], bias, res, out, o, co, co0, relu);
       }
     }
   }
@@ -94,7 +96,8 @@ prelu_conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
 template <bool VEC>
 cudaError_t launch(const void* x, const void* w, const void* bias,
                    const void* alpha, const void* res, void* out, int n, int h,
-                   int wd, int ci, int co, int stride, cudaStream_t stream) {
+                   int wd, int ci, int co, int stride, bool relu,
+                   cudaStream_t stream) {
   const int ho = (h - 1) / stride + 1;
   const int wo = (wd - 1) / stride + 1;
   const int tiles_h = (ho + TILE_H - 1) / TILE_H;
@@ -113,7 +116,7 @@ cudaError_t launch(const void* x, const void* w, const void* bias,
       static_cast<const float*>(alpha),
       static_cast<const __nv_bfloat16*>(res),
       static_cast<__nv_bfloat16*>(out), h, wd, ci, co, stride, ho, wo, tiles_w,
-      tiles_h);
+      tiles_h, relu);
   return cudaGetLastError();
 }
 
@@ -123,13 +126,13 @@ extern "C" int vlg_prelu_conv3x3(const void* x, const void* w,
                                  const void* bias, const void* alpha,
                                  const void* res, void* out, int n, int h,
                                  int wd, int ci, int co, int stride,
-                                 void* stream) {
+                                 int relu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (co % COT == 0)
     return (int)launch<true>(x, w, bias, alpha, res, out, n, h, wd, ci, co,
-                             stride, s);
+                             stride, relu != 0, s);
   return (int)launch<false>(x, w, bias, alpha, res, out, n, h, wd, ci, co,
-                            stride, s);
+                            stride, relu != 0, s);
 }
 
 // Shared-memory bytes one block needs; the wrapper refuses shapes above the

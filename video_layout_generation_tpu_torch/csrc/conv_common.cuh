@@ -97,13 +97,14 @@ __device__ __forceinline__ void conv_item(const __nv_bfloat16* __restrict__ src,
 }
 
 // out[o + k] = bf16(acc[k] + bias[co0 + k] (+ res[o + k])) for k < COT,
-// co0 + k < co.
+// co0 + k < co; with `relu` the sum is clamped at zero before the bf16 store.
 template <bool VEC>
 __device__ __forceinline__ void store_item(const float (&acc)[COT],
                                            const float* __restrict__ bias,
                                            const __nv_bfloat16* __restrict__ res,
                                            __nv_bfloat16* __restrict__ out,
-                                           size_t o, int co, int co0) {
+                                           size_t o, int co, int co0,
+                                           bool relu = false) {
   if (VEC) {
     float v[COT];
 #pragma unroll
@@ -118,6 +119,10 @@ __device__ __forceinline__ void store_item(const float (&acc)[COT],
         v[2 * k + 1] += f.y;
       }
     }
+    if (relu) {
+#pragma unroll
+      for (int k = 0; k < COT; ++k) v[k] = fmaxf(v[k], 0.f);
+    }
     uint4 u;
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
@@ -130,6 +135,7 @@ __device__ __forceinline__ void store_item(const float (&acc)[COT],
       if (co0 + k < co) {
         float v = acc[k] + __ldg(bias + co0 + k);
         if (res != nullptr) v += __bfloat162float(res[o + k]);
+        if (relu) v = fmaxf(v, 0.f);
         out[o + k] = __float2bfloat16(v);
       }
     }

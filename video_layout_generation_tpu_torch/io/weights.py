@@ -1,4 +1,5 @@
-"""The weight bridge: a flax GridNet parameter tree -> the port's state dict.
+"""The weight bridge: a flax parameter tree (GridNet, HNED, VGG19) -> the
+port's state dict.
 
 The port's modules carry the flax module and parameter names, so a flax
 path ``col_1/down_01/Conv_0/kernel`` is the state-dict key
@@ -13,7 +14,11 @@ read HWIO directly, so nothing is repacked.
 - the ``"/"``-joined flat mapping that ``tools/persist_artifacts.py``
   writes (``artifacts_store/flagship_096.npz``: keys such as
   ``params/col_1/down_01/Conv_0/kernel``, plus ``__epoch__``-style
-  metadata, which is skipped).
+  metadata, which is skipped);
+- the ``"."``-joined flat mapping of the converted pretrained weights
+  (``artifacts_store/hned_synth.npz``: ``vgg1_0.kernel``;
+  ``artifacts_store/vgg_synth.npz``: ``conv1_1.kernel``), which already has
+  the state dict's keys.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ def _to_tensor(key: str, arr) -> torch.Tensor:
 
 def params_from_flax(tree_or_flat: Mapping) -> dict:
     """State dict (``{"lateral_in.Conv_0.kernel": tensor, ...}``, f32 on the
-    CPU) for ``GridNet.load_state_dict`` from a flax tree or its flat form.
+    CPU) for ``load_state_dict`` of a port GridNet, HNED or VGG19Features
+    from a flax tree or its flat form.
     A state dict passes through unchanged."""
     flat = _flatten(tree_or_flat)
     state = {}
@@ -60,3 +66,18 @@ def params_from_flax(tree_or_flat: Mapping) -> dict:
             path = path[1:]
         state[".".join(path)] = _to_tensor(key, leaf)
     return state
+
+
+_HNED_CONVS = (
+    [f"vgg{b+1}_{j}" for b, n in enumerate((2, 2, 3, 3, 3))
+     for j in range(n)]
+    + [f"score{i}" for i in range(1, 6)] + ["combine"])
+
+
+def load_hned_params(path: str) -> dict:
+    """State dict of the port's HNED from a converted ``.npz`` of HWIO
+    kernels and biases keyed ``vgg1_0.kernel``, ``score1.bias``, ..."""
+    raw = np.load(path)
+    return params_from_flax({f"{n}.{leaf}": raw[f"{n}.{leaf}"]
+                             for n in _HNED_CONVS
+                             for leaf in ("kernel", "bias")})

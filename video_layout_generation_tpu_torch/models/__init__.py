@@ -4,6 +4,7 @@ from .blocks import (CoordConv, CoordDownSamplingBlock, CoordLateralBlock,
                      CoordUpSamplingBlock, DownSamplingBlock, LateralBlock,
                      PReLU, UpSamplingBlock)
 from .gridnet import CoordGridNet, GridNet
+from .hned import HNED, hned_fused_edge
 
 _REGISTRY = {
     "GridNet": GridNet,
@@ -18,6 +19,6 @@ def get_model_cls(name: str):
 
 
 __all__ = list(_REGISTRY) + [
-    "get_model_cls", "PReLU", "LateralBlock", "DownSamplingBlock",
+    "get_model_cls", "HNED", "hned_fused_edge", "PReLU", "LateralBlock", "DownSamplingBlock",
     "UpSamplingBlock", "CoordConv", "CoordLateralBlock",
     "CoordDownSamplingBlock", "CoordUpSamplingBlock"]

@@ -76,10 +76,11 @@ class Conv3x3(nn.Module):
 
     def forward(self, x: torch.Tensor, alpha: Optional[nn.Parameter] = None,
                 residual: Optional[torch.Tensor] = None, stride: int = 1,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False, relu_out: bool = False
+                ) -> torch.Tensor:
         a = None if alpha is None else alpha.detach()
         return _conv_fn(plain)(x, self.weight(x.dtype), self.bias.detach(),
-                               a, residual, stride)
+                               a, residual, stride, relu_out)
 
 
 class LateralBlock(nn.Module):

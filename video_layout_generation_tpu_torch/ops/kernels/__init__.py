@@ -3,8 +3,9 @@ version and a launch counter (``<wrapper>.launches``)."""
 
 from .conv3x3 import prelu_conv3x3, prelu_conv3x3_plain
 from .lateral import fused_lateral, fused_lateral_plain
+from .ssim import ssim_loss, ssim_planes, ssim_planes_plain
 
-WRAPPERS = (prelu_conv3x3, fused_lateral)
+WRAPPERS = (prelu_conv3x3, fused_lateral, ssim_loss)
 
 
 def reset_launch_counts() -> None:
@@ -17,4 +18,5 @@ def launch_counts() -> dict:
 
 
 __all__ = ["prelu_conv3x3", "prelu_conv3x3_plain", "fused_lateral",
-           "fused_lateral_plain", "reset_launch_counts", "launch_counts"]
+           "fused_lateral_plain", "ssim_loss", "ssim_planes",
+           "ssim_planes_plain", "reset_launch_counts", "launch_counts"]

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/vlg_torch_kernels/lib<name>-<hash>.so``
 at the checkout's root, compiled for ``sm_90a`` at first use. The hash covers
-the source and the shared header, so an edited source builds anew and an
-unchanged one is loaded as it is. The libraries have a plain C interface:
+the source and the ``csrc`` headers it includes, so an edited source or header
+rebuilds the libraries that read it and an unchanged one is loaded as it is. The libraries have a plain C interface:
 pointers and the stream are passed as integers, and each launch function
 returns the CUDA error code of its launch.
 
@@ -17,25 +17,31 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "vlg_torch_kernels"
-KERNELS = ("conv3x3", "lateral")
+KERNELS = ("conv3x3", "lateral", "ssim")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argument types of each library's exported functions
 _SIGNATURES = {
     "conv3x3": {
-        "vlg_prelu_conv3x3": ([_P] * 6 + [_I] * 6 + [_P], _I),
+        "vlg_prelu_conv3x3": ([_P] * 6 + [_I] * 7 + [_P], _I),
         "vlg_prelu_conv3x3_smem": ([_I, _I], ctypes.c_longlong),
     },
     "lateral": {
         "vlg_fused_lateral": ([_P] * 9 + [_I] * 4 + [_P], _I),
         "vlg_fused_lateral_smem": ([_I], ctypes.c_longlong),
+    },
+    "ssim": {
+        "vlg_ssim_planes": ([_P] * 4 + [_I] * 5 + [_P], _I),
+        "vlg_ssim_partials": ([_I] * 4, ctypes.c_longlong),
+        "vlg_ssim_smem": ([_I], ctypes.c_longlong),
     },
 }
 
@@ -51,9 +57,23 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen=None) -> list:
+    """``path`` and every ``csrc`` file it includes with quotes, followed
+    through the headers, each once."""
+    seen = [] if seen is None else seen
+    if path not in seen:
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            _sources(path.parent / inc, seen)
+    return seen
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "conv_common.cuh"):
+    for src in _sources(CSRC / f"{name}.cu"):
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -1,4 +1,4 @@
-"""Kernel A: fused PReLU -> 3x3 conv -> bias (-> + residual), NHWC.
+"""Kernel A: fused PReLU -> 3x3 conv -> bias (-> + residual) (-> ReLU), NHWC.
 
 ``prelu_conv3x3`` launches ``csrc/conv3x3.cu`` for a CUDA tensor and runs
 ``prelu_conv3x3_plain`` for a CPU tensor. It is the counterpart of the TPU
@@ -40,21 +40,26 @@ def conv3x3_plain_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def prelu_conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                         alpha: Optional[torch.Tensor] = None,
                         residual: Optional[torch.Tensor] = None,
-                        stride: int = 1) -> torch.Tensor:
+                        stride: int = 1, relu_out: bool = False
+                        ) -> torch.Tensor:
     """Plain PyTorch version of kernel A, in f32 math, rounded to ``x``'s
     dtype once at the end."""
     xf = x.float() if alpha is None else prelu_plain(x, alpha)
     y = conv3x3_plain_f32(xf, w, b, stride)
     if residual is not None:
         y = y + residual.float()
+    if relu_out:
+        y = y.clamp_min(0.0)
     return y.to(x.dtype).contiguous()
 
 
 def prelu_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   alpha: Optional[torch.Tensor] = None,
                   residual: Optional[torch.Tensor] = None,
-                  stride: int = 1) -> torch.Tensor:
-    """y = conv3x3(prelu(x, alpha)) + b [+ residual], zero padding 1.
+                  stride: int = 1, relu_out: bool = False) -> torch.Tensor:
+    """y = conv3x3(prelu(x, alpha)) + b [+ residual], zero padding 1;
+    ``relu_out`` clamps y at zero (the conv -> ReLU layers of VGG19 and
+    HNED).
 
     x (N, H, W, Ci); w (3, 3, Ci, Co) HWIO in x's dtype; b (Co,) f32;
     alpha a one-element f32 tensor or None (no PReLU); residual shaped like
@@ -65,7 +70,8 @@ def prelu_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
     if x.device.type == "cpu":
-        return prelu_conv3x3_plain(x, w, b, alpha, residual, stride)
+        return prelu_conv3x3_plain(x, w, b, alpha, residual, stride,
+                                   relu_out)
     n, h, wd, ci = x.shape
     co = w.shape[-1]
     ho, wo = (h - 1) // stride + 1, (wd - 1) // stride + 1
@@ -89,7 +95,7 @@ def prelu_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     err = lib.vlg_prelu_conv3x3(
         data_ptr(x), data_ptr(w), data_ptr(b), data_ptr(alpha),
         data_ptr(residual), data_ptr(out), n, h, wd, ci, co, stride,
-        stream_ptr(x.device))
+        int(relu_out), stream_ptr(x.device))
     raise_on_error(err, "prelu_conv3x3")
     prelu_conv3x3.launches += 1
     return out

@@ -8,6 +8,10 @@ fetch. A request goes up as one packed array and comes back as one packed
 array; with ``quantize_transfer`` both are uint8 (frames at 1/255, layout
 ids exact while ``n_classes <= 256``).
 
+``use_edges=True`` serves the 10-channel model as it was trained: the
+frozen HNED edge net runs on the seed frames and on every generated frame
+inside the rollout (``train/rollout.py``).
+
 Example:
     from video_layout_generation_tpu_torch.io.weights import params_from_flax
     state = params_from_flax(flat_npz_of_an_8_channel_gridnet)
@@ -23,20 +27,11 @@ from typing import Mapping, Tuple
 import numpy as np
 import torch
 
+from .device import require_bf16, resolve_device
 from .io.weights import params_from_flax
 from .models import get_model_cls
 from .train.assemble import denormalize_image, normalize_image
 from .train.rollout import make_rollout_fn
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``; raises for a CUDA device when the process
-    has none, instead of running on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' but no CUDA device is available; "
-                           "pass device='cpu' to run the plain versions")
-    return dev
 
 
 class LayoutPredictor:
@@ -49,18 +44,17 @@ class LayoutPredictor:
                  mesh=None, device="cuda", plain: bool = False):
         """``params``: the flax tree, its flat ``"/"``-joined form, or a
         state dict from ``params_from_flax``, of an 8-channel GridNet (the
-        no-edge rollout's input). ``plain=True`` runs the kernels' plain
-        PyTorch versions (the on-card reference)."""
+        no-edge rollout's input) or, with ``use_edges``, of a 10-channel
+        one. ``hned`` is then a port HNED, and ``hned_params`` (same forms)
+        is loaded into it when given. ``plain=True`` runs the kernels'
+        plain PyTorch versions (the on-card reference)."""
         if arch not in ("GridNet", "CoordGridNet"):
             raise ValueError(f"serving supports GridNet archs, got {arch}")
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device serving comes with the data-parallel port")
-        if use_edges or hned is not None or hned_params is not None:
-            raise NotImplementedError(
-                "edge-mode serving needs the HNED edge net, which the port "
-                "does not have yet")
-        del edge_scale  # an edge-mode option
+        if use_edges and hned is None:
+            raise ValueError("use_edges requires an HNED model")
         self.device = resolve_device(device)
         self.arch = arch
         self.n_frames = n_frames
@@ -70,12 +64,22 @@ class LayoutPredictor:
         self.hw = tuple(image_hw)
         dtype = torch.bfloat16 if use_bf16 else None
         self.model = get_model_cls(arch)(
-            n_channels=8, filters_level=tuple(filters_level),
-            dtype=dtype)
+            n_channels=10 if use_edges else 8,
+            filters_level=tuple(filters_level), dtype=dtype)
         self.model.load_state_dict(params_from_flax(params), strict=True)
         self.model.to(self.device).eval()
-        self._rollout = make_rollout_fn(self.model, n_frames=n_frames,
-                                        upsample=upsample, plain=plain)
+        self.hned = None
+        if use_edges:
+            if hned_params is not None:
+                hned.load_state_dict(params_from_flax(hned_params),
+                                     strict=True)
+            self.hned = hned.to(self.device).eval()
+        if not plain:
+            require_bf16(self.device, {"GridNet": self.model,
+                                       "HNED": self.hned})
+        self._rollout = make_rollout_fn(
+            self.model, self.hned, n_frames=n_frames, use_edges=use_edges,
+            upsample=upsample, plain=plain, edge_scale=edge_scale)
         # uint8 both ways; n_classes > 256 would wrap ids in uint8
         self._quantized_serve = quantize_transfer and n_classes <= 256
 

@@ -24,23 +24,26 @@ def _const(vals: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(vals, dtype=torch.float32, device=device)
 
 
-def _c(vals, like: torch.Tensor) -> torch.Tensor:
+def const_like(vals, like: torch.Tensor) -> torch.Tensor:
+    """``vals`` as an f32 tensor on ``like``'s device."""
     return _const(vals, like.device)
 
 
 def normalize_image(img: torch.Tensor) -> torch.Tensor:
     """[0,1] RGB -> ImageNet-normalized."""
-    return (img - _c(IMAGENET_MEAN, img)) / _c(IMAGENET_STD, img)
+    return ((img - const_like(IMAGENET_MEAN, img))
+            / const_like(IMAGENET_STD, img))
 
 
 def denormalize_image(img: torch.Tensor) -> torch.Tensor:
     """ImageNet-normalized -> [0,1]-range RGB."""
-    return img * _c(IMAGENET_STD, img) + _c(IMAGENET_MEAN, img)
+    return (img * const_like(IMAGENET_STD, img)
+            + const_like(IMAGENET_MEAN, img))
 
 
 def normalize_model_output(img: torch.Tensor) -> torch.Tensor:
     """Map the raw img head output into ImageNet-normalized space."""
-    return (img - _c(OUT_MEAN, img)) / _c(OUT_STD, img)
+    return (img - const_like(OUT_MEAN, img)) / const_like(OUT_STD, img)
 
 
 def assemble_model_input(seg1: torch.Tensor, frame1: torch.Tensor,
