@@ -145,7 +145,9 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     x = torch.zeros(1, 4, 4, 8)
     prelu_conv3x3(x, torch.zeros(3, 3, 8, 8), torch.zeros(8))
     assert launch_counts() == {"prelu_conv3x3": 0, "fused_lateral": 0,
-                               "ssim_loss": 0}
+                               "ssim_loss": 0, "instance_norm_fwd": 0,
+                               "instance_norm_fwd_only": 0,
+                               "instance_norm_bwd": 0}
 
 
 def test_kernel_a_rejects_other_strides():

@@ -88,8 +88,12 @@ def test_unported_options_raise(params):
                         **KW)
     with pytest.raises(NotImplementedError):
         LayoutPredictor.from_checkpoint("/nonexistent")
-    with pytest.raises(NotImplementedError):
-        make_train_step(lambda x: x, None, None)
+    # the train step is ported for the nets whose convs are library calls;
+    # GridNet's are kernels A and B, which have no weight gradient yet
+    from video_layout_generation_tpu_torch.models import GridNet
+    with pytest.raises(NotImplementedError, match="weight-gradient"):
+        make_train_step(GridNet(n_channels=8, filters_level=FILTERS), None,
+                        None)
     with pytest.raises(ValueError, match="GridNet"):
         LayoutPredictor("UNet", params, device="cpu", **KW)
     # edge mode is ported; what it still refuses is a missing edge net
@@ -123,7 +127,11 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     imported = set(out.stdout.split())
-    assert len(imported) >= 30
+    assert len(imported) >= 42
+    assert {"ops.kernels.instance_norm", "models.norms", "models.init",
+            "models.layers", "models.resnet_gen", "models.unet_gen",
+            "models.discriminators", "models.factories", "losses.gan",
+            "train.state", "train.schedules", "train.gan"} <= imported
     assert {"serving", "device", "train.rollout", "train.steps", "train.trainer",
             "models.gridnet", "models.hned", "losses.ssim", "losses.pixel",
             "losses.ce", "losses.vgg", "losses.combined", "ops.pooling",

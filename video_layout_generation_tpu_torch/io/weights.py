@@ -1,16 +1,24 @@
-"""The weight bridge: a flax parameter tree (GridNet, HNED, VGG19) -> the
-port's state dict.
+"""The weight bridge: a flax parameter tree (GridNet, HNED, VGG19, the
+pix2pix generators and discriminators) -> the port's state dict.
 
 The port's modules carry the flax module and parameter names, so a flax
 path ``col_1/down_01/Conv_0/kernel`` is the state-dict key
 ``col_1.down_01.Conv_0.kernel``, and the arrays keep their flax layout
 (HWIO kernels, (Co,) biases, scalar PReLU slopes): kernel A and kernel B
-read HWIO directly, so nothing is repacked.
+read HWIO directly, so nothing is repacked. That holds for the pix2pix nets
+too: a ``ConvTranspose`` kernel stays as flax has it, and the port's module
+flips it on its way to the library (``models/layers.py``), so parameters,
+gradients and optimizer state compare leaf by leaf with the JAX package's.
+A BatchNorm's running statistics (flax's ``batch_stats`` collection:
+``BatchNorm_0/mean``, ``/var``) are buffers of the port's module under the
+same names, so ``{"params": ..., "batch_stats": ...}`` maps onto one state
+dict.
 
 ``params_from_flax`` takes either form the JAX package produces:
 
 - the nested tree of arrays, with or without its top-level ``"params"``
-  key (``variables`` or ``variables["params"]``);
+  and ``"batch_stats"`` keys (``variables``, ``variables["params"]`` or a
+  ``batch_stats`` tree alone);
 - the ``"/"``-joined flat mapping that ``tools/persist_artifacts.py``
   writes (``artifacts_store/flagship_096.npz``: keys such as
   ``params/col_1/down_01/Conv_0/kernel``, plus ``__epoch__``-style
@@ -53,8 +61,8 @@ def _to_tensor(key: str, arr) -> torch.Tensor:
 
 def params_from_flax(tree_or_flat: Mapping) -> dict:
     """State dict (``{"lateral_in.Conv_0.kernel": tensor, ...}``, f32 on the
-    CPU) for ``load_state_dict`` of a port GridNet, HNED or VGG19Features
-    from a flax tree or its flat form.
+    CPU) for ``load_state_dict`` of a port net from a flax tree or its flat
+    form.
     A state dict passes through unchanged."""
     flat = _flatten(tree_or_flat)
     state = {}
@@ -62,7 +70,7 @@ def params_from_flax(tree_or_flat: Mapping) -> dict:
         if key.startswith("__"):
             continue
         path = key.split("::", 1)[0].split("/")
-        if path[0] == "params":
+        if path[0] in ("params", "batch_stats"):
             path = path[1:]
         state[".".join(path)] = _to_tensor(key, leaf)
     return state

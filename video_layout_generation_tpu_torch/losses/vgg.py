@@ -7,7 +7,9 @@ seed, which keeps the loss well defined.
 
 Each of the 12 conv -> ReLU layers is one launch of kernel A
 (``prelu_conv3x3`` with ``relu_out``); the 2x2 max pools are torch calls and
-the L1 reduction is f32.
+the L1 reduction is f32. Under autograd the gradient with respect to the
+output image runs back through 12 more launches of kernel A (its data
+gradient); the weights are frozen.
 """
 
 from __future__ import annotations

@@ -3,12 +3,22 @@
 from .blocks import (CoordConv, CoordDownSamplingBlock, CoordLateralBlock,
                      CoordUpSamplingBlock, DownSamplingBlock, LateralBlock,
                      PReLU, UpSamplingBlock)
+from .discriminators import NLayerDiscriminator, PixelDiscriminator
+from .factories import define_D, define_G
 from .gridnet import CoordGridNet, GridNet
 from .hned import HNED, hned_fused_edge
+from .init import get_initializer
+from .norms import BatchNorm, InstanceNorm, get_norm_layer
+from .resnet_gen import ResnetBlock, ResnetGenerator
+from .unet_gen import UnetGenerator, UnetSkipBlock
 
 _REGISTRY = {
     "GridNet": GridNet,
     "CoordGridNet": CoordGridNet,
+    "ResnetGenerator": ResnetGenerator,
+    "UnetGenerator": UnetGenerator,
+    "NLayerDiscriminator": NLayerDiscriminator,
+    "PixelDiscriminator": PixelDiscriminator,
 }
 
 
@@ -21,4 +31,6 @@ def get_model_cls(name: str):
 __all__ = list(_REGISTRY) + [
     "get_model_cls", "HNED", "hned_fused_edge", "PReLU", "LateralBlock", "DownSamplingBlock",
     "UpSamplingBlock", "CoordConv", "CoordLateralBlock",
-    "CoordDownSamplingBlock", "CoordUpSamplingBlock"]
+    "CoordDownSamplingBlock", "CoordUpSamplingBlock", "define_G", "define_D",
+    "get_initializer", "get_norm_layer", "InstanceNorm", "BatchNorm",
+    "ResnetBlock", "UnetSkipBlock"]

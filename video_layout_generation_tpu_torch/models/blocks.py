@@ -13,7 +13,11 @@ before it fused in. A block takes the grid's additive fusion as
 ``residual`` and adds it in the last kernel's epilogue. ``plain=True``
 runs the kernels' plain PyTorch versions instead (the on-card reference).
 
-Inference only: the kernels have no backward yet.
+Forward only, but for one gradient: kernel A differentiates the stride-1
+conv without PReLU and residual with respect to its input (the VGG19 trunk
+of the perceptual loss). The blocks hand the kernels detached weights, and
+a GridNet is refused by the train steps until the weight-gradient kernels
+exist.
 """
 
 from __future__ import annotations

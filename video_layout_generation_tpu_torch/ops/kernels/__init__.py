@@ -1,22 +1,34 @@
 """Hand-written CUDA kernels of the port, each with its plain PyTorch
-version and a launch counter (``<wrapper>.launches``)."""
+version and its launch counters (``<wrapper>.launches``; the InstanceNorm
+wrapper counts its three kernels apart)."""
 
 from .conv3x3 import prelu_conv3x3, prelu_conv3x3_plain
+from . import instance_norm   # the module: its wrapper shares its name
 from .lateral import fused_lateral, fused_lateral_plain
 from .ssim import ssim_loss, ssim_planes, ssim_planes_plain
 
-WRAPPERS = (prelu_conv3x3, fused_lateral, ssim_loss)
+# counter name -> (wrapper, attribute)
+COUNTERS = {
+    "prelu_conv3x3": (prelu_conv3x3, "launches"),
+    "fused_lateral": (fused_lateral, "launches"),
+    "ssim_loss": (ssim_loss, "launches"),
+    "instance_norm_fwd": (instance_norm.instance_norm, "launches_fwd"),
+    "instance_norm_fwd_only": (instance_norm.instance_norm,
+                               "launches_fwd_only"),
+    "instance_norm_bwd": (instance_norm.instance_norm, "launches_bwd"),
+}
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS:
-        fn.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
 __all__ = ["prelu_conv3x3", "prelu_conv3x3_plain", "fused_lateral",
            "fused_lateral_plain", "ssim_loss", "ssim_planes",
-           "ssim_planes_plain", "reset_launch_counts", "launch_counts"]
+           "ssim_planes_plain", "instance_norm", "reset_launch_counts",
+           "launch_counts"]

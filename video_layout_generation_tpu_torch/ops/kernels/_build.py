@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "vlg_torch_kernels"
-KERNELS = ("conv3x3", "lateral", "ssim")
+KERNELS = ("conv3x3", "lateral", "ssim", "instance_norm")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +42,12 @@ _SIGNATURES = {
         "vlg_ssim_planes": ([_P] * 4 + [_I] * 5 + [_P], _I),
         "vlg_ssim_partials": ([_I] * 4, ctypes.c_longlong),
         "vlg_ssim_smem": ([_I], ctypes.c_longlong),
+    },
+    "instance_norm": {
+        "vlg_instance_norm_fwd": ([_P] * 4 + [_I] * 3 + [ctypes.c_float, _I,
+                                                         _P], _I),
+        "vlg_instance_norm_bwd": ([_P] * 5 + [_I] * 4 + [_P], _I),
+        "vlg_instance_norm_scratch": ([_I] * 4, ctypes.c_longlong),
     },
 }
 

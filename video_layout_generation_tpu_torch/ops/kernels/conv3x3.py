@@ -7,6 +7,14 @@ prelu_conv_packed3x3, prelu_conv_packed3x3_res),
 ``ops/pallas/conv1x2.py:_fwd_impl`` (conv3x3_w1x2) and
 ``ops/pallas/conv3x3.py:_conv3x3_fwd_impl`` (conv3x3_pallas) of the JAX
 package, computed on the logical NHWC tensor instead of their packed forms.
+
+Gradients: the data gradient of the stride-1 conv without PReLU and
+residual (the conv -> ReLU layers of the frozen VGG19 trunk, through which
+the perceptual loss is differentiated) is itself a launch of kernel A:
+``dx = conv3x3(dz, W')`` with ``dz = dy * (y > 0)`` under ``relu_out`` and
+``W'[kh, kw, co, ci] = W[2 - kh, 2 - kw, ci, co]``. Nothing else has a
+backward kernel yet: a weight, bias, slope or residual that requires grad,
+or a data gradient through PReLU or stride 2, raises.
 """
 
 from __future__ import annotations
@@ -53,6 +61,13 @@ def prelu_conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.to(x.dtype).contiguous()
 
 
+def _no_backward(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"kernel A has no {what} kernel yet: it differentiates only the "
+        f"stride-1 conv without PReLU and residual with respect to its "
+        f"input, with frozen weights")
+
+
 def prelu_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   alpha: Optional[torch.Tensor] = None,
                   residual: Optional[torch.Tensor] = None,
@@ -66,9 +81,27 @@ def prelu_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     the output or None; stride 1 or 2. The output has x's dtype.
 
     A CPU tensor runs the plain version; a CUDA tensor (bf16) launches the
-    kernel, and anything the kernel does not take raises."""
+    kernel, and anything the kernel does not take raises. With autograd on,
+    an ``x`` that requires grad gets its gradient from a second launch of
+    the kernel (see the module's docstring); any other gradient raises
+    ``NotImplementedError`` on either device."""
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
+    if torch.is_grad_enabled():
+        if any(t is not None and t.requires_grad for t in (w, b, alpha)):
+            raise _no_backward("weight-gradient")
+        if residual is not None and residual.requires_grad:
+            raise _no_backward("residual-gradient")
+        if x.requires_grad:
+            if alpha is not None or residual is not None or stride != 1:
+                raise _no_backward("PReLU, residual or stride-2 "
+                                   "data-gradient")
+            return _Conv3x3DataGrad.apply(x, w, b, relu_out)
+    return _forward(x, w, b, alpha, residual, stride, relu_out)
+
+
+def _forward(x, w, b, alpha, residual, stride, relu_out) -> torch.Tensor:
+    """The plain version for a CPU tensor, one launch for a CUDA tensor."""
     if x.device.type == "cpu":
         return prelu_conv3x3_plain(x, w, b, alpha, residual, stride,
                                    relu_out)
@@ -99,6 +132,29 @@ def prelu_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     raise_on_error(err, "prelu_conv3x3")
     prelu_conv3x3.launches += 1
     return out
+
+
+class _Conv3x3DataGrad(torch.autograd.Function):
+    """y = conv3x3(x, w) + b (-> ReLU) with frozen w and b. Backward: the
+    same conv of the masked output gradient with the kernel flipped in
+    space and its channel axes swapped, no bias: one more launch of kernel
+    A (its plain version for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, relu_out):
+        y = _forward(x, w, b, None, None, 1, relu_out)
+        ctx.relu_out = relu_out
+        ctx.save_for_backward(w, y if relu_out else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        w, y = ctx.saved_tensors
+        dz = dy * (y > 0) if ctx.relu_out else dy
+        wt = w.flip(0, 1).transpose(2, 3).contiguous()
+        zero = torch.zeros(w.shape[2], dtype=torch.float32, device=w.device)
+        dx = _forward(dz.contiguous(), wt, zero, None, None, 1, False)
+        return dx, None, None, None
 
 
 prelu_conv3x3.launches = 0

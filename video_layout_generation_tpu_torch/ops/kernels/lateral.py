@@ -40,7 +40,14 @@ def fused_lateral(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     a0, a1 one-element f32 tensors; residual like x or None.
 
     A CPU tensor runs the plain version; a CUDA tensor (bf16) launches the
-    kernel, and anything the kernel does not take raises."""
+    kernel, and anything the kernel does not take raises, as does an
+    argument that requires grad while autograd is on."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, w0, b0, a0, w1, b1, a1, residual)):
+        raise NotImplementedError(
+            "kernel B has no weight-gradient or data-gradient kernel yet: "
+            "it runs forward only")
     if x.device.type == "cpu":
         return fused_lateral_plain(x, w0, b0, a0, w1, b1, a1, residual)
     n, h, wd, c = x.shape

@@ -20,8 +20,10 @@ OUT_STD = (0.448, 0.448, 0.450)
 @functools.lru_cache(maxsize=None)
 def _const(vals: tuple, device: torch.device) -> torch.Tensor:
     # made once per device: a copy from the host inside the rollout loop
-    # would wait for the device on every frame
-    return torch.tensor(vals, dtype=torch.float32, device=device)
+    # would wait for the device on every frame. Made outside inference mode
+    # even when the rollout asks first: the train step saves it for backward
+    with torch.inference_mode(False):
+        return torch.tensor(vals, dtype=torch.float32, device=device)
 
 
 def const_like(vals, like: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,22 @@
-"""The validation step (the forward half of the JAX package's
-``train/steps.py``).
+"""The train and validation steps (the JAX package's ``train/steps.py``).
 
 One call covers the whole step: decode of the compact batch, frozen HNED
-edge extraction, normalization, input assembly, the model forward, the
-3-term loss ``w_l1*L1 + w_style*(VGG+SSIM+Grad) + w_seg*CE`` and the
-confusion matrix. On the card every 3x3 conv of GridNet, HNED and VGG19 is
-a launch of kernel A or B and the SSIM term one launch of the fused SSIM
-kernel. The train step (backward of the conv kernels, optimizer, flip) is
-not ported yet.
+edge extraction, normalization, input assembly, the random horizontal flip
+(train), the model forward, the 3-term loss ``w_l1*L1 +
+w_style*(VGG+SSIM+Grad) + w_seg*CE``, and then the confusion matrix
+(validation) or the gradients and the optimizer update (train). On the card
+every 3x3 conv of GridNet, HNED and VGG19 is a launch of kernel A or B, the
+SSIM term of the validation step one launch of the fused SSIM kernel, and
+every InstanceNorm of a pix2pix generator a launch of the InstanceNorm
+kernels, forward and backward; the gradient of the VGG19 term runs back
+through kernel A.
+
+The train step takes the nets whose convs the JAX package leaves to the
+library (``ResnetGenerator``). GridNet's convs are kernels A and B, which
+have no weight-gradient kernel yet, so a GridNet is refused.
+
+The flip is one coin per step over the whole batch (``flip_mode="batch"``),
+one per example (``"per_example"``) or none.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from ..device import require_bf16, resolve_device
 from ..evaluation.metrics import confusion_matrix
 from ..losses.ce import cross_entropy_loss
 from ..losses.pixel import l1_loss
+from ..models.blocks import Conv3x3
 from ..models.hned import hned_fused_edge
 from .assemble import (assemble_model_input, normalize_image,
                        normalize_model_output)
@@ -83,10 +93,103 @@ def make_loss_fn(model: Callable, combined_loss, w_l1: float = 40.0,
     return loss_fn
 
 
-def make_train_step(*args, **kwargs):
-    raise NotImplementedError(
-        "the train step needs the backward kernels of the conv kernels and "
-        "the optimizers, which the port does not have yet")
+def _flip_w(x: torch.Tensor) -> torch.Tensor:
+    """Horizontal flip: W is axis -2 of an NHWC tensor and axis -1 of an
+    (N, H, W) integer map."""
+    if x.ndim == 4:
+        return x.flip(-2)
+    if x.ndim == 3:
+        return x.flip(-1)
+    return x
+
+
+def _maybe_flip(coin, *tensors):
+    """``coin`` a bool flips all tensors or none; a bool tensor (N,) flips
+    the examples it marks."""
+    if isinstance(coin, torch.Tensor) and coin.ndim == 1:
+        return tuple(torch.where(
+            coin.reshape((-1,) + (1,) * (t.ndim - 1)), _flip_w(t), t)
+            for t in tensors)
+    return tuple(map(_flip_w, tensors)) if bool(coin) else tuple(tensors)
+
+
+def flip_coin(flip_mode: str, n: int, generator, device):
+    """The step's coin: a bool for ``batch``, a bool tensor (n,) on
+    ``device`` for ``per_example``, None for ``none``. Drawn on the CPU from
+    ``generator`` (the global generator when None), so that a step never
+    waits for the device to learn its coin."""
+    if flip_mode == "none":
+        return None
+    if flip_mode == "batch":
+        return bool(torch.rand((), generator=generator) < 0.5)
+    if flip_mode == "per_example":
+        return (torch.rand(n, generator=generator) < 0.5).to(device)
+    raise ValueError(f"unknown flip_mode {flip_mode!r}")
+
+
+def refuse_kernel_conv_training(model: torch.nn.Module, what: str) -> None:
+    """Raise for a net whose convs are kernels A and B (GridNet,
+    CoordGridNet): they cannot be trained yet. Called before anything else,
+    on any device."""
+    if any(isinstance(m, Conv3x3) for m in model.modules()):
+        raise NotImplementedError(
+            f"the {what} of {type(model).__name__} needs the "
+            f"weight-gradient kernels of kernel A (prelu_conv3x3) and "
+            f"kernel B (fused_lateral) and their PReLU and stride-2 "
+            f"data-gradient kernels, which the port does not have yet; a "
+            f"ResnetGenerator trains")
+
+
+def _frozen_nets(hned, combined_loss) -> dict:
+    return {"HNED": hned,
+            "the VGG19 trunk of CombinedLoss": combined_loss.vgg_model}
+
+
+def make_train_step(model: torch.nn.Module, hned: Optional[torch.nn.Module],
+                    combined_loss, w_l1: float = 40.0, w_style: float = 20.0,
+                    w_seg: float = 10.0, flip_mode: str = "batch",
+                    plain: bool = False, device="cuda",
+                    generator: Optional[torch.Generator] = None):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    ``state`` is a ``TrainState`` over ``model``'s parameters
+    (``TrainState.create(model, tx)`` after the nets are on ``device``; this
+    call moves them there). The step computes the loss and its gradients and
+    updates the parameters and the optimizer state in place; ``metrics``
+    holds the detached loss terms on the device. ``generator`` draws the
+    flip's coin. The model always runs with ``train=False`` (no dropout,
+    running averages in a BatchNorm generator), as the JAX step applies it.
+    ``plain=True`` runs every kernel's plain PyTorch version."""
+    refuse_kernel_conv_training(model, "train step")
+    if flip_mode not in ("batch", "per_example", "none"):
+        raise ValueError(f"unknown flip_mode {flip_mode!r}")
+    dev = resolve_device(device)
+    nets = _frozen_nets(hned, combined_loss)
+    if not plain:
+        require_bf16(dev, nets)
+    model.to(dev)
+    for net in nets.values():
+        if net is not None:
+            net.to(dev).eval()
+    loss_fn = make_loss_fn(model, combined_loss, w_l1, w_style, w_seg)
+
+    def train_step(state, batch):
+        with torch.no_grad():
+            batch = decode_batch(_to_device(batch, dev))
+            x, f3n = prepare_inputs(hned, batch, plain)
+            s3 = batch["seg3"]
+            coin = flip_coin(flip_mode, x.shape[0], generator, dev)
+            if coin is not None:
+                x, f3n, s3 = _maybe_flip(coin, x, f3n, s3)
+        with torch.enable_grad():
+            total, (metrics, _, _) = loss_fn(x, f3n, s3, plain)
+            names = list(state.params)
+            grads = torch.autograd.grad(total,
+                                        [state.params[k] for k in names])
+        state.apply_gradients(dict(zip(names, grads)))
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
 
 
 def _to_device(batch: Mapping, device: torch.device) -> dict:
@@ -110,11 +213,13 @@ def make_eval_step(model: torch.nn.Module, hned: Optional[torch.nn.Module],
     ``plain=True`` runs every kernel's plain PyTorch version (the on-card
     reference)."""
     dev = resolve_device(device)
-    nets = {"GridNet": model, "HNED": hned,
-            "the VGG19 trunk of CombinedLoss": combined_loss.vgg_model}
+    nets = _frozen_nets(hned, combined_loss)
+    if any(isinstance(m, Conv3x3) for m in model.modules()):
+        # its convs are kernels A and B, which take bf16 only on the card
+        nets = {type(model).__name__: model, **nets}
     if not plain:
         require_bf16(dev, nets)
-    for net in nets.values():
+    for net in (model, *nets.values()):
         if net is not None:
             net.to(dev).eval()
     loss_fn = make_loss_fn(model, combined_loss, w_l1, w_style, w_seg)
