@@ -8,13 +8,18 @@ CUDA toolkit:
 
 Phases:
   1. print the card's name and power limit, build the CUDA kernels from
-     ``video_layout_generation_tpu_torch/csrc`` with nvcc (sm_90a);
+     ``video_layout_generation_tpu_torch/csrc`` with nvcc (sm_90a); fail on
+     any register spill in the two conv kernels and count the tensor-core
+     instructions (HMMA / HGMMA) in their SASS, which must be there;
   2. kernels: hold kernel A (prelu_conv3x3, with and without its ReLU
      epilogue) and kernel B (fused_lateral) against their plain PyTorch
-     versions in bf16 at the shapes of the rollout and at every conv shape
-     of VGG19 and HNED (batch 16, 256x256), and time each beside its plain
-     version, a cuDNN yardstick and its bound; hold the fused SSIM kernel
-     (ssim_loss) against its plain version in f32 and bf16 at the
+     versions in bf16 at the shapes of the rollout, at every conv shape
+     of VGG19 and HNED (batch 16, 256x256), at the two 512-channel shapes
+     at batch 1 and at ragged shapes that cut every tile, chunk and channel
+     block; each case runs twice and must give the same bits; time each
+     beside its plain version, a cuDNN yardstick and its bound; hold the
+     fused SSIM kernel (ssim_loss) against its plain version in f32 and
+     bf16 at the
      validation step's shape and at a ragged one, once with x = y (loss
      exactly 0); hold the three InstanceNorm kernels (forward that keeps
      y and rstd, forward that keeps nothing, backward) against the plain
@@ -22,8 +27,9 @@ Phases:
      of the pix2pix generator and discriminator (batch 16) and at a ragged
      one, with a constant plane (exactly 0) and a bf16 plane of large mean;
      hold kernel A's data gradient (a second launch of A) against autograd
-     of the plain version at the nine conv -> ReLU shapes. Every time is
-     device time from a torch.profiler trace;
+     of the plain version at the conv -> ReLU shapes, beside cuDNN's bf16
+     input gradient and its bound. Every time is device time from a
+     torch.profiler trace;
   3. slice: LayoutPredictor at full width (8-channel GridNet, filters
      32/64/96, 256x256, 8 frames, batch 16, bf16, random weights from
      ``--seed`` passed through the flax weight bridge) answers 3 requests
@@ -69,6 +75,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -227,6 +235,43 @@ def bound(nbytes: int, flops: int, peak_flops: float = PEAK_BF16_FLOP_PER_S):
                                  "operations")
 
 
+# ---- phase 1: what the compiler made of the conv kernels -------------------
+
+TENSOR_CORE_KERNELS = ("conv3x3", "lateral")
+
+
+def check_no_spills(logs):
+    """Fail on any register spill that ptxas reports for the conv kernels
+    (their accumulators fill most of the register file)."""
+    for name in TENSOR_CORE_KERNELS:
+        for line in logs.get(name, "").splitlines():
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            check(m is None or (m.group(1), m.group(2)) == ("0", "0"),
+                  f"ptxas {name}: {line.strip()}")
+
+
+def count_tensor_core_instructions(_build):
+    """Count HMMA / HGMMA instructions in the SASS of the built conv
+    libraries with the ``cuobjdump`` that stands beside ``nvcc``; they must be
+    there. Without ``cuobjdump`` the line says so."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        print("sass: cuobjdump not found beside nvcc; tensor-core "
+              "instructions not counted", flush=True)
+        return
+    for name in TENSOR_CORE_KERNELS:
+        out = subprocess.run([tool, "-sass", str(_build._target(name))],
+                             capture_output=True, text=True, timeout=300)
+        check(out.returncode == 0, f"cuobjdump {name}: {out.stderr[:500]}")
+        hmma = out.stdout.count("HMMA")
+        hgmma = out.stdout.count("HGMMA")
+        print(f"sass {name}: {hmma} HMMA, {hgmma} HGMMA instructions",
+              flush=True)
+        check(hmma + hgmma > 0,
+              f"{name}: no tensor-core instruction in the built library")
+
+
 # ---- phase 2: kernels ------------------------------------------------------
 
 def kernel_cases():
@@ -242,6 +287,12 @@ def kernel_cases():
         ("A stride2 32->64", r0 + (32,), 64, 2, True, False),
         ("A input 8->32", r0 + (8,), 32, 1, True, False),
         ("A head 32->20", r0 + (32,), 20, 1, True, False),
+        # ragged in every direction: tiles, channel chunks and the channel
+        # block are all cut, so every mask of the kernel is exercised
+        ("A ragged 24->20 (3,37,53) +res", (3, 37, 53, 24), 20, 1, True,
+         True),
+        ("A ragged 24->20 (3,37,53) stride2 +res", (3, 37, 53, 24), 20, 2,
+         True, True),
     ]
     r3, r4 = (BATCH, 32, 32), (BATCH, 16, 16)
     # every conv -> ReLU shape of VGG19 (to relu4_4) and HNED (5 stages)
@@ -255,11 +306,16 @@ def kernel_cases():
         ("A relu 256->512 32^2 (VGG/HNED conv4_1)", r3 + (256,), 512),
         ("A relu 512->512 32^2 (VGG/HNED stage 4)", r3 + (512,), 512),
         ("A relu 512->512 16^2 (HNED stage 5)", r4 + (512,), 512),
+        # batch 1: the edge-mode request's latency hangs on these two
+        ("A relu 512->512 32^2 b1", (1, 32, 32, 512), 512),
+        ("A relu 512->512 16^2 b1", (1, 16, 16, 512), 512),
     ]
     b = []
     for row, shp, c in (("row0", r0, 32), ("row1", r1, 64), ("row2", r2, 96)):
         b.append((f"B {row}", shp + (c,), c, 1, True, False))
         b.append((f"B {row} +res", shp + (c,), c, 1, True, True))
+    b.append(("B ragged C40 (3,37,53) +res", (3, 37, 53, 40), 40, 1, True,
+              True))
     return ([("prelu_conv3x3",) + x + (False, 1e-2) for x in a]
             + [("prelu_conv3x3",) + x + (1, False, False, True, 1e-2)
                for x in relu]
@@ -314,10 +370,15 @@ def run_kernel_case(torch, F, kern, case, seed):
         nbytes = 2 * (2 * x.numel() + w0.numel() + w1.numel()
                       + (res.numel() if with_res else 0)) + 8 * ci
     got = fn(*args)
+    again = fn(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
     check(got.shape == (n, ho, wo, co) and got.dtype == torch.bfloat16,
           f"{name}: output {tuple(got.shape)} {got.dtype}")
+    # a race between the asynchronous copies and the tensor-core reads
+    # would show as a rare difference between two launches
+    check(bool(torch.equal(got, again)),
+          f"{name}: two launches on the same inputs differ")
     diff = (got.float() - ref.float()).abs()
     max_abs = float(diff.max())
     norm = max_abs / max(float(ref.float().abs().max()), 1e-30)
@@ -582,6 +643,9 @@ def run_dgrad_case(torch, kern, case, seed):
     torch.cuda.synchronize()
     check(kern.launch_counts()["prelu_conv3x3"] - before == 2,
           f"{name}: forward and data gradient are not two launches of A")
+    dxk2, = torch.autograd.grad(yk, xk, up, retain_graph=True)
+    check(bool(torch.equal(dxk, dxk2)),
+          f"{name}: two data-gradient launches on the same inputs differ")
     yp = kern.prelu_conv3x3_plain(xp, wt, bias, relu_out=True)
     dxp, = torch.autograd.grad(yp, xp, up, retain_graph=True)
     # The ReLU's mask is a step: where the kernel's and the plain version's
@@ -605,6 +669,12 @@ def run_dgrad_case(torch, kern, case, seed):
         yk, xk, up, retain_graph=True), reps=10)
     plain_ms = device_ms(torch, lambda: torch.autograd.grad(
         yp, xp, up, retain_graph=True), reps=10)
+    # the yardstick: cuDNN's bf16 input gradient of the same conv (the plain
+    # version's backward is an f32 conv, which is none)
+    w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+    up_cl = up.permute(0, 3, 1, 2)     # channels_last view, no copy
+    library_ms = device_ms(torch, lambda: torch.nn.grad.conv2d_input(
+        (n, ci, h, w), w_oihw, up_cl, padding=1), reps=10)
     flops = 2 * n * h * w * co * 9 * ci
     nbytes = 2 * (2 * up.numel() + wt.numel() + x.numel())
     b_ms, b_by = bound(nbytes, flops)
@@ -612,8 +682,8 @@ def run_dgrad_case(torch, kern, case, seed):
                kernel="prelu_conv3x3", shape=list(shape), co=co,
                max_abs_err=max_abs, norm_err=norm, norm_err_bound=DGRAD_TOL,
                relu_autograd_mean_err=relu_mean_err, mask_flips=mask_flips,
-               ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by, flops=flops, bytes=nbytes,
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
                roofline_share=b_ms / ms)
     print("case " + json.dumps(rec), flush=True)
     check(norm <= DGRAD_TOL,
@@ -1540,6 +1610,8 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    check_no_spills(logs)
+    count_tensor_core_instructions(_build)
 
     cases = [run_kernel_case(torch, F, kern, c, args.seed + i)
              for i, c in enumerate(kernel_cases())]

@@ -74,7 +74,11 @@ class Conv3x3(nn.Module):
             return k
         key = (dtype, k.device, k.data_ptr(), k._version)
         if self._cast_key != key:
-            self._cast = k.to(dtype).contiguous()
+            # a normal tensor even when a rollout under inference_mode asks
+            # first: it has a version counter (the kernels' weight-pack cache
+            # reads it) and can be saved for a backward
+            with torch.inference_mode(False):
+                self._cast = self.kernel.detach().to(dtype).contiguous()
             self._cast_key = key
         return self._cast
 

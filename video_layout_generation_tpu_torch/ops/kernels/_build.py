@@ -31,12 +31,10 @@ _I = ctypes.c_int
 # argument types of each library's exported functions
 _SIGNATURES = {
     "conv3x3": {
-        "vlg_prelu_conv3x3": ([_P] * 6 + [_I] * 7 + [_P], _I),
-        "vlg_prelu_conv3x3_smem": ([_I, _I], ctypes.c_longlong),
+        "vlg_prelu_conv3x3": ([_P] * 6 + [_I] * 13 + [_P], _I),
     },
     "lateral": {
-        "vlg_fused_lateral": ([_P] * 9 + [_I] * 4 + [_P], _I),
-        "vlg_fused_lateral_smem": ([_I], ctypes.c_longlong),
+        "vlg_fused_lateral": ([_P] * 9 + [_I] * 8 + [_P], _I),
     },
     "ssim": {
         "vlg_ssim_planes": ([_P] * 4 + [_I] * 5 + [_P], _I),

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -10,7 +11,15 @@ import torch
 def check_cuda(t: torch.Tensor, dtype: torch.dtype, shape: tuple,
                name: str, device: Optional[torch.device] = None) -> None:
     """Raise unless ``t`` is a contiguous, 16-byte-aligned CUDA tensor of
-    ``dtype`` and ``shape`` (on ``device`` where given)."""
+    ``dtype`` and ``shape`` (on ``device`` where given) whose images (the
+    slices of a 4-D tensor's first axis) the kernels can index in 32 bits.
+    It runs several times per launch, so a tensor that passes takes one
+    condition; what is wrong is worked out only on the way to the error."""
+    if (t.is_cuda and t.dtype is dtype and t.shape == shape
+            and t.is_contiguous() and not t.data_ptr() & 15
+            and t.numel() < 2 ** 31
+            and (device is None or t.device == device)):
+        return
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
@@ -24,6 +33,9 @@ def check_cuda(t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+    if t.dim() == 4 and t.numel() >= 2 ** 31 * max(t.shape[0], 1):
+        raise ValueError(f"{name}: one image must hold fewer than 2^31 "
+                         f"values, got {tuple(t.shape)}")
 
 
 def data_ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -31,10 +43,20 @@ def data_ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` as an integer handle (read
+    without building a ``torch.cuda.Stream`` object: this runs once per
+    launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def raise_on_error(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card: the persistent kernels size
+    their grids by it."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -8,6 +8,14 @@ prelu_conv_packed3x3, prelu_conv_packed3x3_res),
 ``ops/pallas/conv3x3.py:_conv3x3_fwd_impl`` (conv3x3_pallas) of the JAX
 package, computed on the logical NHWC tensor instead of their packed forms.
 
+The kernel is an implicit GEMM on the tensor cores (``csrc/conv_common.cuh``).
+What it needs from the host is decided here, in Python, so that the CPU tests
+can hold it: ``conv_plan`` picks the block of output channels, the number of
+ring stages and the shared memory for a shape, and ``packed_weights`` hands
+the kernel weight rows that start on 16 bytes (Co padded to a multiple of 8)
+and, for the data gradient, the flipped and transposed kernel, both from a
+cache keyed on the weight tensor and its version.
+
 Gradients: the data gradient of the stride-1 conv without PReLU and
 residual (the conv -> ReLU layers of the frozen VGG19 trunk, through which
 the perceptual loss is differentiated) is itself a launch of kernel A:
@@ -19,13 +27,16 @@ or a data gradient through PReLU or stride 2, raises.
 
 from __future__ import annotations
 
+import functools
+import weakref
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from ._build import library
-from ._checks import check_cuda, data_ptr, raise_on_error, stream_ptr
+from ._checks import (check_cuda, data_ptr, raise_on_error, sm_count,
+                      stream_ptr)
 
 
 def prelu_plain(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -59,6 +70,111 @@ def prelu_conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if relu_out:
         y = y.clamp_min(0.0)
     return y.to(x.dtype).contiguous()
+
+
+# The kernel's fixed geometry (csrc/conv3x3.cu, csrc/conv_common.cuh).
+TILE_W = 16                 # output columns of a block: one m16 tile a row
+TILE_ROWS = (8, 16)         # output rows of a block: 2 or 4 a warp
+CHUNK = 16                  # input channels per ring stage
+PIX_BYTES = (CHUNK + 8) * 2  # a staged pixel: 32 bytes and 16 of padding
+MAX_STAGES = 3
+# two blocks an SM: 228 KB less 1 KB reserved for each
+SMEM_LIMIT = 113 * 1024
+SMEM_PER_SM = 228 * 1024
+N_SM = 132                  # an H100; the wrapper passes the card's own
+MAX_BLOCKS_PER_SM = 3       # the kernel's launch bounds: registers
+
+
+def scratch_bytes(bn: int) -> int:
+    """The epilogue's warp-private f32 scratch: four warps, one m-tile of 16
+    pixels each, rows padded by 8 floats."""
+    return 4 * 16 * (bn + 8) * 4
+
+
+def stage_bytes(bn: int, stride: int, tile_h: int = 8) -> int:
+    """Shared memory of one ring stage: the input tile with its halo and
+    the weights of the nine taps, ``CHUNK`` input channels of each."""
+    rows, cols = (tile_h - 1) * stride + 3, (TILE_W - 1) * stride + 3
+    return rows * cols * PIX_BYTES + 9 * CHUNK * (bn + 8) * 2
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(n: int, h: int, w: int, ci: int, co: int, stride: int = 1,
+              n_sm: int = N_SM) -> dict:
+    """How kernel A runs a conv of an (n, h, w, ci) input to ``co`` channels:
+    ``tile`` output pixels and ``bn`` output channels (32 or 64) an item,
+    ``stages`` of the ring, ``smem`` bytes a block, the ``grid`` of items
+    (pixel tiles, channel blocks), the persistent ``blocks`` that share them
+    and ``chunks`` of input channels. Shared memory does not depend on ci.
+    The dict is kept per shape: read it, do not change it."""
+    if stride not in (1, 2):
+        raise ValueError(f"stride must be 1 or 2, got {stride}")
+    if min(n, h, w, ci, co) < 1:
+        raise ValueError(f"empty conv: {(n, h, w, ci, co)}")
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+
+    def tiles(tile_h):
+        return n * (-(-ho // tile_h)) * (-(-wo // TILE_W))
+
+    tile_h = TILE_ROWS[0]
+    bn = 32 if co <= 32 else 64
+    if bn == 64 and tiles(tile_h) * (-(-co // 64)) < n_sm:
+        bn = 32     # a small image: more, narrower items fill the card
+    elif stride == 1 and tiles(TILE_ROWS[1]) * (-(-co // bn)) >= 2 * n_sm:
+        # enough work to fill the card with 16 x 16 tiles: half the ldmatrix
+        # traffic per mma, and half as many items to set up and store
+        tile_h = TILE_ROWS[1]
+    fixed = scratch_bytes(bn)
+    stage = stage_bytes(bn, stride, tile_h)
+    # three blocks an SM where the registers allow it (bn = 32): more warps
+    # hide more latency than a third stage does
+    limit = SMEM_PER_SM // 3 - 1024 if bn == 32 else SMEM_LIMIT
+    stages = MAX_STAGES
+    while stages > 2 and fixed + stages * stage > limit:
+        stages -= 1
+    smem = fixed + stages * stage
+    grid = (tiles(tile_h), -(-co // bn))
+    per_sm = max(1, min(MAX_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024)))
+    return dict(tile=(tile_h, TILE_W), bn=bn, stages=stages, smem=smem,
+                grid=grid, blocks=min(grid[0] * grid[1], n_sm * per_sm),
+                chunks=-(-ci // CHUNK))
+
+
+def pack_weights(w: torch.Tensor, transposed: bool = False) -> torch.Tensor:
+    """The HWIO kernel as the CUDA kernels read it: output channels padded
+    with zeros to a multiple of 8, contiguous. With ``transposed`` the
+    kernel of the data gradient, W'[kh, kw, co, ci] = W[2 - kh, 2 - kw, ci,
+    co], packed the same way."""
+    if transposed:
+        w = w.flip(0, 1).transpose(2, 3)
+    pad = -w.shape[-1] % 8
+    if pad:
+        w = F.pad(w, (0, pad))
+    return w.contiguous()
+
+
+_PACKS: dict = {}   # (id(w), transposed) -> (weakref to w, version, packed)
+
+
+def packed_weights(w: torch.Tensor, transposed: bool = False
+                   ) -> torch.Tensor:
+    """``pack_weights`` through a cache keyed on the tensor and its version
+    counter: a parameter updated in place is packed again, and an entry
+    goes when its tensor does. A kernel that needs no packing is returned
+    as it is; an inference tensor has no version counter and is packed on
+    every call."""
+    if not transposed and w.shape[-1] % 8 == 0 and w.is_contiguous():
+        return w
+    if w.is_inference():
+        return pack_weights(w, transposed)
+    key = (id(w), transposed)
+    hit = _PACKS.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    packed = pack_weights(w.detach(), transposed)
+    _PACKS[key] = (weakref.ref(w, lambda _, key=key: _PACKS.pop(key, None)),
+                   w._version, packed)
+    return packed
 
 
 def _no_backward(what: str) -> NotImplementedError:
@@ -100,16 +216,23 @@ def prelu_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return _forward(x, w, b, alpha, residual, stride, relu_out)
 
 
-def _forward(x, w, b, alpha, residual, stride, relu_out) -> torch.Tensor:
-    """The plain version for a CPU tensor, one launch for a CUDA tensor."""
+def _forward(x, w, b, alpha, residual, stride, relu_out,
+             transposed: bool = False) -> torch.Tensor:
+    """The plain version for a CPU tensor, one launch for a CUDA tensor.
+    With ``transposed`` the conv runs on the flipped, transposed kernel
+    (``pack_weights``): the data gradient."""
     if x.device.type == "cpu":
+        if transposed:
+            w = pack_weights(w, True)[..., :w.shape[2]]
         return prelu_conv3x3_plain(x, w, b, alpha, residual, stride,
                                    relu_out)
     n, h, wd, ci = x.shape
-    co = w.shape[-1]
+    co = w.shape[2] if transposed else w.shape[3]
     ho, wo = (h - 1) // stride + 1, (wd - 1) // stride + 1
     check_cuda(x, torch.bfloat16, (n, h, wd, ci), "x")
-    check_cuda(w, torch.bfloat16, (3, 3, ci, co), "w", x.device)
+    check_cuda(w, torch.bfloat16,
+               (3, 3, co, ci) if transposed else (3, 3, ci, co), "w",
+               x.device)
     check_cuda(b, torch.float32, (co,), "b", x.device)
     if alpha is not None:
         check_cuda(alpha, torch.float32, tuple(alpha.shape), "alpha",
@@ -119,16 +242,14 @@ def _forward(x, w, b, alpha, residual, stride, relu_out) -> torch.Tensor:
     if residual is not None:
         check_cuda(residual, torch.bfloat16, (n, ho, wo, co), "residual",
                    x.device)
-    lib = library("conv3x3")
-    smem = lib.vlg_prelu_conv3x3_smem(ci, stride)
-    if smem > 227 * 1024:
-        raise ValueError(f"Ci={ci} at stride {stride} needs {smem} bytes "
-                         f"of shared memory per block; the card has 227 KB")
+    plan = conv_plan(n, h, wd, ci, co, stride, sm_count(x.device))
+    wp = packed_weights(w, transposed)
     out = torch.empty((n, ho, wo, co), dtype=x.dtype, device=x.device)
-    err = lib.vlg_prelu_conv3x3(
-        data_ptr(x), data_ptr(w), data_ptr(b), data_ptr(alpha),
-        data_ptr(residual), data_ptr(out), n, h, wd, ci, co, stride,
-        int(relu_out), stream_ptr(x.device))
+    err = library("conv3x3").vlg_prelu_conv3x3(
+        data_ptr(x), data_ptr(wp), data_ptr(b), data_ptr(alpha),
+        data_ptr(residual), data_ptr(out), n, h, wd, ci, co, wp.shape[-1],
+        stride, int(relu_out), plan["tile"][0], plan["bn"], plan["stages"],
+        plan["smem"], plan["blocks"], stream_ptr(x.device))
     raise_on_error(err, "prelu_conv3x3")
     prelu_conv3x3.launches += 1
     return out
@@ -151,9 +272,9 @@ class _Conv3x3DataGrad(torch.autograd.Function):
     def backward(ctx, dy):
         w, y = ctx.saved_tensors
         dz = dy * (y > 0) if ctx.relu_out else dy
-        wt = w.flip(0, 1).transpose(2, 3).contiguous()
         zero = torch.zeros(w.shape[2], dtype=torch.float32, device=w.device)
-        dx = _forward(dz.contiguous(), wt, zero, None, None, 1, False)
+        dx = _forward(dz.contiguous(), w, zero, None, None, 1, False,
+                      transposed=True)
         return dx, None, None, None
 
 
