@@ -25,11 +25,16 @@ Phases:
      y and rstd, forward that keeps nothing, backward) against the plain
      version and its autograd in bf16 and f32 at every InstanceNorm shape
      of the pix2pix generator and discriminator (batch 16) and at a ragged
-     one, with a constant plane (exactly 0) and a bf16 plane of large mean;
+     one, with a constant plane (exactly 0) and a bf16 plane of large mean,
+     printing each shape's launch plan (regime, channel tile, cluster size,
+     clusters the card holds at once), asserting from a profiler trace that
+     each call is one kernel launch and that repeats give the same bits;
      hold kernel A's data gradient (a second launch of A) against autograd
      of the plain version at the conv -> ReLU shapes, beside cuDNN's bf16
      input gradient and its bound. Every time is device time from a
-     torch.profiler trace;
+     torch.profiler trace (CUDA events where the profiler keeps coming
+     back with an incomplete trace; the ``kernels`` line's ``timed_by``
+     says which);
   3. slice: LayoutPredictor at full width (8-channel GridNet, filters
      32/64/96, 256x256, 8 frames, batch 16, bf16, random weights from
      ``--seed`` passed through the flax weight bridge) answers 3 requests
@@ -176,6 +181,10 @@ ROUTES = {
 }
 
 
+TRACE_TRIES = 6           # profiler traces taken before giving up on one
+EVENT_TIMED = []          # one entry for each timing taken with CUDA events
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -194,29 +203,84 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def retry_pause(attempt: int) -> None:
+    """The pause before the ``attempt``-th try of a profiler trace. A trace
+    now and then comes back empty or holds only some of the launches, and
+    such traces come in runs of a few in a row (five once), so the tries
+    are spread over seconds, not taken back to back."""
+    if attempt:
+        time.sleep(0.5 * attempt)
+
+
+def complete(rows, calls: int) -> bool:
+    """Whether a trace of ``calls`` calls of the same function holds all of
+    their launches: every call launches at least one kernel, and the same
+    kernels each time, so every row counts a multiple of ``calls``."""
+    return (sum(count for _, count in rows) >= calls
+            and all(count % calls == 0 for _, count in rows))
+
+
 def device_ms(torch, fn, reps: int = 20):
     """Mean device time per call of ``fn``: the summed time of every kernel
     and copy that ``reps`` calls put on the card, from a torch.profiler
     trace. Every ``ms``, ``plain_ms`` and ``library_ms`` of the script comes
     from here. Host time and the gaps between kernels are left out, so a
     kernel shorter than its wrapper's host path is timed as the card ran
-    it."""
+    it. An incomplete trace is taken again; after ``TRACE_TRIES`` of them
+    the calls are timed with CUDA events instead (``event_ms``), and
+    ``EVENT_TIMED`` counts that."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
-    # a trace now and then comes back empty (seen once in some 300 traces
-    # of a run); it is taken again, at most twice
-    for _ in range(3):
+    for attempt in range(TRACE_TRIES):
+        retry_pause(attempt)
         with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(ev.self_device_time_total
-                       for ev in prof.key_averages() if on_device(torch, ev))
-        if total_us > 0:
-            return total_us / 1e3 / reps
-        print("device_ms: empty trace, taking it again", flush=True)
-    raise SmokeFailure("the profiler saw no device time")
+        rows = [ev for ev in prof.key_averages() if on_device(torch, ev)]
+        if complete([(ev.key, ev.count) for ev in rows], reps):
+            return sum(ev.self_device_time_total for ev in rows) / 1e3 / reps
+        print(f"device_ms: incomplete trace ({sum(ev.count for ev in rows)} "
+              f"launches for {reps} calls), taking it again", flush=True)
+    EVENT_TIMED.append(1)
+    ms = event_ms(torch, fn, reps)
+    print(f"device_ms: {TRACE_TRIES} incomplete traces; timed with CUDA "
+          f"events instead: {ms:.6f} ms a call", flush=True)
+    return ms
+
+
+def event_ms(torch, fn, reps: int) -> float:
+    """Mean time per call of ``reps`` calls of ``fn`` between two CUDA
+    events. The calls are enqueued behind a sleep kernel that outlasts the
+    host's loop, so they run back to back and host time is left out; the
+    gaps between kernels are counted, so this reads a little above the
+    profiler's sum."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # 2e6 cycles a millisecond is the H100's top clock: at a lower one the
+    # sleep only lasts longer
+    torch.cuda._sleep(int((2 * host_ms + 5.0) * 2e6))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timing_method(n_event_timed: int) -> str:
+    """``timed_by`` of a case whose timings fell back to CUDA events
+    ``n_event_timed`` times."""
+    if n_event_timed == 0:
+        return "torch.profiler device time"
+    return (f"torch.profiler device time; CUDA events for {n_event_timed} "
+            f"of its timings (the profiler's traces were incomplete)")
 
 
 def on_device(torch, ev) -> bool:
@@ -512,10 +576,20 @@ def run_instance_norm_case(torch, F, kern, case, seed):
     x, dy = xs[0], dys[0]
     tag = f"{dtype_name} {shape}" + ("" if kind == "random" else f" {kind}")
 
+    plans = {}
+    for short, backward in (("fwd", False), ("bwd", True)):
+        plan = mod.instance_norm_plan(n, h, w, c, dtype, backward,
+                                      mod.sm_count(x.device))
+        plans[short] = dict(regime=plan["regime"], ct=plan["ct"],
+                            k=plan["k"], rows=plan["rows"],
+                            held=plan["held"], smem=plan["smem"],
+                            active_clusters=mod.active_clusters(x, backward))
+    print(f"IN plan {dtype_name} {shape}: " + json.dumps(plans), flush=True)
+
     before = kern.launch_counts()
     xk = x.clone().requires_grad_(True)
     y, rstd = mod.InstanceNormFunction.apply(xk, mod.EPS)
-    y2 = mod.instance_norm(xk)                 # keeps y and rstd again
+    y2, rstd2 = mod.InstanceNormFunction.apply(xk, mod.EPS)   # again
     with torch.no_grad():
         only = mod.instance_norm(x)            # keeps nothing
     dx, = torch.autograd.grad(y, xk, dy, retain_graph=True)
@@ -530,8 +604,22 @@ def run_instance_norm_case(torch, F, kern, case, seed):
                    "instance_norm_bwd": 2}, f"IN {tag}: launches {diff}")
     check(y.dtype == dtype and y.shape == shape and rstd.shape == (n, c)
           and rstd.dtype == torch.float32, f"IN {tag}: output types")
-    check(bool(torch.equal(y, y2)) and bool(torch.equal(y, only)),
+    check(bool(torch.equal(y, y2)) and bool(torch.equal(rstd, rstd2))
+          and bool(torch.equal(y, only)),
           f"IN {tag}: the three forwards differ")
+    # one launch a call, whatever the regime: the only kernel on the card
+    with torch.no_grad():
+        one = {
+            "fwd": kernels_on_card(torch, lambda: mod.InstanceNormFunction
+                                   .apply(x, mod.EPS)),
+            "fwd_only": kernels_on_card(torch, lambda: mod.instance_norm(x)),
+            "bwd": kernels_on_card(torch, lambda: mod._InstanceNormBackward
+                                   .apply(dy, y.detach(), rstd.detach()))}
+    for short, rows in one.items():
+        name = "instance_norm_bwd_kernel" if short == "bwd" else \
+            "instance_norm_fwd_kernel"
+        check(len(rows) == 1 and rows[0][1] == 1 and name in rows[0][0],
+              f"IN {short} {tag}: kernels of one call {rows}")
     check(bool(torch.equal(dx, dx2)),
           f"IN {tag}: two backward launches differ")
     errs = {}
@@ -596,7 +684,9 @@ def run_instance_norm_case(torch, F, kern, case, seed):
                    shape=list(shape), dtype=dtype_name, kind=kind,
                    max_abs_err=err[0], norm_err=err[1],
                    rstd_rel_err=rstd_err, bound_ms=b_ms, bound_by=b_by,
-                   bytes=nbytes, flops=flops)
+                   bytes=nbytes, flops=flops,
+                   plan=plans["bwd" if short == "bwd" else "fwd"],
+                   launches_a_call=1)
         if timed:
             ms, plain_ms, library_ms = {
                 "fwd": (ms_fwd, plain_fwd, lib_fwd),
@@ -846,23 +936,67 @@ def run_slice(torch, kern, seed: int):
                           agreement=agree, img_err=img_err)
 
 
-def profile_call(name, fn):
+def kernels_on_card(torch, fn, calls: int = 4):
+    """(name, launches a call) of every kernel and copy that one call of
+    ``fn`` puts on the card, from a torch.profiler trace of ``calls`` calls;
+    an incomplete trace is taken again, as in ``device_ms``, twice as many
+    times since no other means counts launches on the card."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    for attempt in range(2 * TRACE_TRIES):
+        retry_pause(attempt)
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(ev.key, ev.count) for ev in prof.key_averages()
+                if on_device(torch, ev)]
+        if complete(rows, calls):
+            return [(key, count // calls) for key, count in rows]
+        print(f"kernels_on_card: incomplete trace {rows}, taking it again",
+              flush=True)
+    raise SmokeFailure(f"no complete profiler trace in {2 * TRACE_TRIES} "
+                       f"tries")
+
+
+IN_KERNELS = ("instance_norm_fwd_kernel", "instance_norm_bwd_kernel")
+
+
+def in_launches(per_step) -> tuple:
+    """(forward, backward) InstanceNorm kernel launches of a step."""
+    return per_step["instance_norm_fwd"], per_step["instance_norm_bwd"]
+
+
+def profile_call(name, fn, in_launches=(0, 0)):
     """Device time by kernel over one call of ``fn`` (which must end in a
     fetch or a synchronize), and the device's busy time beside the call's
     wall time. Only rows of kernels and copies are summed (``on_device``),
-    so that no device time is counted twice."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        wall = time.perf_counter() - t0
+    so that no device time is counted twice. A trace with no kernel, or
+    with other counts of the InstanceNorm kernels than ``in_launches``
+    (forward, backward), is taken again, as in ``device_ms``. Returns the
+    InstanceNorm kernels' device ms (forward, backward)."""
     import torch
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = ev.self_device_time_total
-        if dev_us > 0 and on_device(torch, ev):
-            rows.append((dev_us, ev.count, ev.key))
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    for attempt in range(TRACE_TRIES):
+        retry_pause(attempt)
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            wall = time.perf_counter() - t0
+        rows = []
+        for ev in prof.key_averages():
+            dev_us = ev.self_device_time_total
+            if dev_us > 0 and on_device(torch, ev):
+                rows.append((dev_us, ev.count, ev.key))
+        seen = tuple(sum(r[1] for r in rows if k in r[2]) for k in IN_KERNELS)
+        if rows and seen == tuple(in_launches):
+            break
+        print(f"profile [{name}]: incomplete trace ({len(rows)} kernels, "
+              f"InstanceNorm launches {seen}), taking it again", flush=True)
+    else:
+        raise SmokeFailure(f"profile [{name}]: no complete trace in "
+                           f"{TRACE_TRIES} tries")
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     print(f"profile [{name}]: wall {wall * 1e3:.1f} ms, device busy "
@@ -870,12 +1004,13 @@ def profile_call(name, fn):
           flush=True)
     # the 15 largest rows, and the SSIM and InstanceNorm kernels wherever
     # they rank
-    small = ("ssim_", "stats_", "normalize_kernel", "bwd_sums", "bwd_final",
-             "bwd_apply")
+    small = ("ssim_", "instance_norm_")
     for dev_us, count, key in rows[:15] + [
             r for r in rows[15:] if any(k in r[2] for k in small)]:
         print(f"profile: {dev_us / 1e3:9.2f} ms {count:6d}x {key[:90]}",
               flush=True)
+    return tuple(sum(r[0] for r in rows if k in r[2]) / 1e3
+                 for k in IN_KERNELS)
 
 
 # ---- phases 4 and 5: the edge-mode validation step and rollout ---------------
@@ -1417,12 +1552,14 @@ def run_train(torch, kern, weights, seed: int):
         times.append(time.perf_counter() - t0)
     sps = BATCH / min(times)
     torch.cuda.reset_peak_memory_stats()
-    profile_call("train step b16",
-                 lambda: float(step(state, batches[0])[1]["loss"]))
+    in_fwd, in_bwd = profile_call(
+        "train step b16", lambda: float(step(state, batches[0])[1]["loss"]),
+        in_launches=in_launches(LAUNCHES_PER_TRAIN_STEP))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"train timing: b{BATCH} step times s {json.dumps(times)}; train "
-          f"samples/s {sps:.1f}; peak memory of one step {peak:.2f} GiB",
-          flush=True)
+          f"samples/s {sps:.1f}; peak memory of one step {peak:.2f} GiB; "
+          f"InstanceNorm device ms per step {in_fwd + in_bwd:.4f} (forward "
+          f"{in_fwd:.4f}, backward {in_bwd:.4f})", flush=True)
     return launches, dict(samples_per_s=sps, terms=terms, grad_err=e2e,
                           losses=history)
 
@@ -1505,10 +1642,13 @@ def run_gan(torch, kern, weights, seed: int):
         float(m["loss"])
         times.append(time.perf_counter() - t0)
     sps = BATCH / min(times)
-    profile_call("GAN step b16",
-                 lambda: float(step(state, batches[0])[1]["loss"]))
+    in_fwd, in_bwd = profile_call(
+        "GAN step b16", lambda: float(step(state, batches[0])[1]["loss"]),
+        in_launches=in_launches(LAUNCHES_PER_GAN_STEP))
     print(f"GAN train timing: b{BATCH} step times s {json.dumps(times)}; GAN "
-          f"train samples/s {sps:.1f}", flush=True)
+          f"train samples/s {sps:.1f}; InstanceNorm device ms per step "
+          f"{in_fwd + in_bwd:.4f} (forward {in_fwd:.4f}, backward "
+          f"{in_bwd:.4f})", flush=True)
 
     # one WGAN-GP step: the penalty differentiates the critic's input
     # gradient, so it runs the InstanceNorm backward's own backward
@@ -1613,14 +1753,29 @@ def main(argv=None) -> int:
     check_no_spills(logs)
     count_tensor_core_instructions(_build)
 
-    cases = [run_kernel_case(torch, F, kern, c, args.seed + i)
+    def tag_timing(run):
+        """Run one case; tag its records with how their times were taken."""
+        mark = len(EVENT_TIMED)
+        recs = run()
+        for rec in recs if isinstance(recs, list) else [recs]:
+            rec["timed_by"] = timing_method(len(EVENT_TIMED) - mark)
+        return recs
+
+    cases = [tag_timing(lambda: run_kernel_case(torch, F, kern, c,
+                                                args.seed + i))
              for i, c in enumerate(kernel_cases())]
-    cases += [run_ssim_case(torch, kern, c, args.seed + 100 + i)
+    cases += [tag_timing(lambda: run_ssim_case(torch, kern, c,
+                                               args.seed + 100 + i))
               for i, c in enumerate(ssim_cases())]
     for i, c in enumerate(instance_norm_cases()):
-        cases += run_instance_norm_case(torch, F, kern, c, args.seed + 200 + i)
-    cases += [run_dgrad_case(torch, kern, c, args.seed + 300 + i)
+        cases += tag_timing(lambda: run_instance_norm_case(
+            torch, F, kern, c, args.seed + 200 + i))
+    cases += [tag_timing(lambda: run_dgrad_case(torch, kern, c,
+                                                args.seed + 300 + i))
               for i, c in enumerate(kernel_cases()) if c[7]]   # relu_out
+    if EVENT_TIMED:
+        print(f"timing: {len(EVENT_TIMED)} timings taken with CUDA events "
+              f"(incomplete profiler traces)", flush=True)
     # each path: counts set to 0 just before it, read just after it
     by_path = {}
     by_path["no-edge rollout"], slice_stats = run_slice(torch, kern,
@@ -1663,7 +1818,7 @@ def main(argv=None) -> int:
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"], shape=main["case"],
-            timed_by="torch.profiler device time"))
+            timed_by=main["timed_by"]))
     print(f"card: {card}; rollout frames/s at b{BATCH}: "
           f"{slice_stats['fps']:.1f}; b1 latency "
           f"{slice_stats['b1_latency_s'] * 1e3:.1f} ms; validation samples/s "

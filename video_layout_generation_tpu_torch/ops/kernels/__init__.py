@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port, each with its plain PyTorch
 version and its launch counters (``<wrapper>.launches``; the InstanceNorm
-wrapper counts its three kernels apart)."""
+wrapper counts its forward, forward-only and backward launches apart)."""
 
 from .conv3x3 import prelu_conv3x3, prelu_conv3x3_plain
 from . import instance_norm   # the module: its wrapper shares its name

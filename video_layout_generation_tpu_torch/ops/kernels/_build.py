@@ -42,10 +42,10 @@ _SIGNATURES = {
         "vlg_ssim_smem": ([_I], ctypes.c_longlong),
     },
     "instance_norm": {
-        "vlg_instance_norm_fwd": ([_P] * 4 + [_I] * 3 + [ctypes.c_float, _I,
-                                                         _P], _I),
-        "vlg_instance_norm_bwd": ([_P] * 5 + [_I] * 4 + [_P], _I),
-        "vlg_instance_norm_scratch": ([_I] * 4, ctypes.c_longlong),
+        "vlg_instance_norm_fwd": ([_P] * 3 + [_I] * 3 + [ctypes.c_float]
+                                  + [_I] * 6 + [_P], _I),
+        "vlg_instance_norm_bwd": ([_P] * 4 + [_I] * 9 + [_P], _I),
+        "vlg_instance_norm_active_clusters": ([_I] * 10, _I),
     },
 }
 

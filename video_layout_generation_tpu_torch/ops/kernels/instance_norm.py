@@ -17,6 +17,13 @@ only lane-aligned channel counts and planes that fit on chip, the CUDA
 kernel takes any N, H, W, C: no shape-dependent switch to the plain version
 exists.
 
+Each call is one launch. ``instance_norm_plan`` decides on the host how it
+runs: each (n, channel tile) slice of the image goes to one thread-block
+cluster of up to 16 CTAs that holds the slice in shared memory (the
+"resident" regime: the input is read from device memory once), or, for a
+slice that no cluster holds, part of it (the "streaming" regime). The call
+allocates its outputs and nothing else.
+
 The backward kernel runs through a second ``torch.autograd.Function`` whose
 own backward is the closed form in torch ops, so a gradient of a gradient
 (the WGAN-GP penalty) works on the card too.
@@ -27,12 +34,31 @@ Three counters tell the launches apart: ``instance_norm.launches_fwd``,
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ._build import library
-from ._checks import check_cuda, data_ptr, raise_on_error, stream_ptr
+from ._checks import (check_cuda, data_ptr, raise_on_error, sm_count,
+                      stream_ptr)
 
 EPS = 1e-5
+
+# The kernel's fixed geometry (csrc/instance_norm.cu).
+NTHREADS = 256
+NWARPS = NTHREADS // 32
+MAX_LANES = 32              # 16-byte channel vectors of a tile
+MAX_CLUSTER = 16            # CTAs of a cluster; more than 8 is non-portable
+PORTABLE_CLUSTER = 8
+SMEM_MAX = 232448           # shared memory of one block on an H100
+# The plan's choices, in order of preference, as measured on an H100 by
+# tools/check_instance_norm.py --sweep (PERF.md): a tile's row segment
+# (16-byte rows take twice as long), then the rows one CTA holds.
+ROW_BYTES = (128, 64, 32)
+CTA_BYTES = (64 * 1024, 128 * 1024)
+STREAM_BYTES = 24 * 1024    # rows one CTA of a streaming plan holds
+MIN_ROWS_PER_THREAD = 4     # a small image is not spread thinner than this
+N_SM = 132                  # an H100; the wrapper passes the card's own
 
 
 def _stat_dtype(x: torch.Tensor) -> torch.dtype:
@@ -77,11 +103,90 @@ def _check_nhwc(x: torch.Tensor, name: str) -> None:
                          f"device, got {x.dtype}")
 
 
-def _scratch(lib, x: torch.Tensor) -> torch.Tensor:
+def smem_bytes(ct: int, held: int, esize: int, bufs: int) -> int:
+    """Shared memory of one CTA: NWARPS * ct floats for the CTA's sums, 4 *
+    ct of statistics, then ``bufs`` tensors of ``held`` rows of ``ct``
+    values."""
+    return 4 * (NWARPS + 4) * ct + held * ct * esize * bufs
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def instance_norm_plan(n: int, h: int, w: int, c: int, dtype: torch.dtype,
+                       backward: bool = False, n_sm: int = N_SM) -> dict:
+    """How one call on an (n, h, w, c) tensor of ``dtype`` runs: channel
+    tiles of ``ct`` channels (``vec`` a 16-byte vector, or 1 for a ragged
+    C), one cluster of ``k`` CTAs for each (n, tile) slice, ``rows`` pixels a
+    CTA (the last one fewer) of which it holds ``held`` in ``smem`` bytes of
+    shared memory; the grid is (k, ctiles, n). ``regime`` is "resident"
+    where every row is held, else "streaming". The backward holds dy and y.
+
+    Resident: the first of (CTAs of ``CTA_BYTES``) x (row segments of
+    ``ROW_BYTES``, a whole row where C is narrower) whose slice fits a
+    cluster of 16; a small image then takes more CTAs a slice until the
+    card is full. Streaming where none fits: whole rows (up to 32 vectors),
+    clusters of 16 CTAs that hold ``STREAM_BYTES`` each. The dict is kept
+    per shape: read it, do not change it."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"InstanceNorm takes float32 or bfloat16, got {dtype}")
+    if min(n, h, w, c) < 1:
+        raise ValueError(f"empty InstanceNorm: {(n, h, w, c)}")
+    hw = h * w
+    esize = 2 if dtype == torch.bfloat16 else 4
+    vec = 16 // esize if c % (16 // esize) == 0 else 1
+    bufs = 2 if backward else 1
+    lanes = 1
+    while lanes < min(MAX_LANES, _cdiv(c, vec)):
+        lanes *= 2
+    whole = lanes * vec          # the narrowest tile that covers C
+
+    def slice_bytes(ct):
+        return hw * ct * esize * bufs
+
+    for per_cta in CTA_BYTES:
+        fits = [ct for ct in (min(whole, max(vec, b // esize))
+                              for b in ROW_BYTES)
+                if _cdiv(slice_bytes(ct), per_cta) <= MAX_CLUSTER]
+        if fits:
+            ct, regime = fits[0], "resident"
+            k = _cdiv(slice_bytes(ct), per_cta)
+            break
+    else:
+        ct, k, regime = whole, MAX_CLUSTER, "streaming"
+    ctiles = _cdiv(c, ct)
+    ty_n = NTHREADS // (ct // vec)
+    cap = PORTABLE_CLUSTER if k <= PORTABLE_CLUSTER else MAX_CLUSTER
+    k = max(k, min(cap, _cdiv(n_sm, n * ctiles),
+                   hw // (MIN_ROWS_PER_THREAD * ty_n)))
+    rows = _cdiv(hw, k)
+    k = _cdiv(hw, rows)          # every CTA holds one row or more
+    row = ct * esize * bufs
+    held = rows if regime == "resident" else min(rows - 1,
+                                                  STREAM_BYTES // row)
+    return dict(regime=regime, vec=vec, ct=ct, ctiles=ctiles, k=k,
+                rows=rows, held=held, smem=smem_bytes(ct, held, esize, bufs))
+
+
+def _plan_args(plan: dict) -> tuple:
+    return plan["ct"], plan["k"], plan["rows"], plan["held"], plan["smem"]
+
+
+def active_clusters(x: torch.Tensor, backward: bool = False) -> int:
+    """How many clusters of ``x``'s plan the card holds at once
+    (``cudaOccupancyMaxActiveClusters``). Raises where that is none."""
     n, h, w, c = x.shape
-    size = lib.vlg_instance_norm_scratch(
-        n, h * w, c, int(x.dtype == torch.bfloat16))
-    return torch.empty(size, dtype=torch.float32, device=x.device)
+    plan = instance_norm_plan(n, h, w, c, x.dtype, backward,
+                              sm_count(x.device))
+    count = library("instance_norm").vlg_instance_norm_active_clusters(
+        n, h * w, c, int(x.dtype == torch.bfloat16), int(backward),
+        *_plan_args(plan))
+    if count <= 0:
+        raise RuntimeError(f"instance_norm: the card runs no cluster of the "
+                           f"plan {plan} (result {count})")
+    return count
 
 
 def _launch_fwd(x: torch.Tensor, eps: float, keep: bool):
@@ -90,13 +195,13 @@ def _launch_fwd(x: torch.Tensor, eps: float, keep: bool):
     _check_nhwc(x, "x")
     n, h, w, c = x.shape
     check_cuda(x, x.dtype, (n, h, w, c), "x")
-    lib = library("instance_norm")
+    plan = instance_norm_plan(n, h, w, c, x.dtype, False, sm_count(x.device))
     y = torch.empty_like(x)
     rstd = (torch.empty((n, c), dtype=torch.float32, device=x.device)
             if keep else None)
-    err = lib.vlg_instance_norm_fwd(
-        data_ptr(x), data_ptr(y), data_ptr(rstd), data_ptr(_scratch(lib, x)),
-        n, h * w, c, float(eps), int(x.dtype == torch.bfloat16),
+    err = library("instance_norm").vlg_instance_norm_fwd(
+        data_ptr(x), data_ptr(y), data_ptr(rstd), n, h * w, c, float(eps),
+        int(x.dtype == torch.bfloat16), *_plan_args(plan),
         stream_ptr(x.device))
     raise_on_error(err, "instance_norm")
     if keep:
@@ -113,12 +218,12 @@ def _launch_bwd(dy: torch.Tensor, xhat: torch.Tensor,
     check_cuda(dy, dy.dtype, (n, h, w, c), "dy")
     check_cuda(xhat, dy.dtype, (n, h, w, c), "xhat", dy.device)
     check_cuda(rstd, torch.float32, (n, c), "rstd", dy.device)
-    lib = library("instance_norm")
+    plan = instance_norm_plan(n, h, w, c, dy.dtype, True, sm_count(dy.device))
     dx = torch.empty_like(dy)
-    err = lib.vlg_instance_norm_bwd(
-        data_ptr(dy), data_ptr(xhat), data_ptr(rstd), data_ptr(dx),
-        data_ptr(_scratch(lib, dy)), n, h * w, c,
-        int(dy.dtype == torch.bfloat16), stream_ptr(dy.device))
+    err = library("instance_norm").vlg_instance_norm_bwd(
+        data_ptr(dy), data_ptr(xhat), data_ptr(rstd), data_ptr(dx), n, h * w,
+        c, int(dy.dtype == torch.bfloat16), *_plan_args(plan),
+        stream_ptr(dy.device))
     raise_on_error(err, "instance_norm backward")
     instance_norm.launches_bwd += 1
     return dx
