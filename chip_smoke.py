@@ -19,11 +19,13 @@ Phases:
      block; each case runs twice and must give the same bits; time each
      beside its plain version, a cuDNN yardstick and its bound; hold the
      fused SSIM kernel (ssim_loss) against its plain version in f32 and
-     bf16 at the
-     validation step's shape and at a ragged one, once with x = y (loss
-     exactly 0); hold the three InstanceNorm kernels (forward that keeps
-     y and rstd, forward that keeps nothing, backward) against the plain
-     version and its autograd in bf16 and f32 at every InstanceNorm shape
+     bf16 at the validation step's shape, at batch 1, at ragged shapes and
+     at one of 5 channels and two passes a row, once with x = y (loss
+     exactly 0), printing its launch plan, asserting from a profiler trace
+     that each call is one kernel launch, and timing it beside a ``copy_``
+     of the same bytes; hold the three InstanceNorm kernels (forward that
+     keeps y and rstd, forward that keeps nothing, backward) against the
+     plain version and its autograd in bf16 and f32 at every InstanceNorm shape
      of the pix2pix generator and discriminator (batch 16) and at a ragged
      one, with a constant plane (exactly 0) and a bf16 plane of large mean,
      printing each shape's launch plan (regime, channel tile, cluster size,
@@ -470,38 +472,78 @@ def ssim_cases():
     full = (BATCH,) + HW + (3,)
     return [("SSIM f32 eval shape", full, "float32", False),
             ("SSIM bf16 eval shape", full, "bfloat16", False),
+            ("SSIM f32 b1 (1,256,256,3)", (1,) + HW + (3,), "float32",
+             False),
             ("SSIM f32 ragged (5,130,94,3)", (5, 130, 94, 3), "float32",
              False),
+            ("SSIM bf16 ragged (5,130,94,3)", (5, 130, 94, 3), "bfloat16",
+             False),
+            # C = 5 (the instance for any C), rows wider than one pass,
+            # ends off 16 bytes
+            ("SSIM bf16 C=5 two passes (2,20,300,5)", (2, 20, 300, 5),
+             "bfloat16", False),
             ("SSIM f32 x == y", full, "float32", True)]
 
 
-def run_ssim_case(torch, kern, case, seed):
-    """Hold the fused SSIM kernel against its plain version per plane and
-    time both. The timed launches rotate over 4 input pairs (100 MB in f32
-    at the eval shape) so that none finds its inputs in the 50 MB L2."""
-    name, shape, dtype_name, same = case
-    dtype = getattr(torch, dtype_name)
+def ssim_inputs(torch, shape, dtype, same, seed, pairs=4):
+    """``pairs`` input pairs on the card: x in [0, 1], y = x plus noise
+    (or x itself)."""
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(seed)
-    pairs = []
-    for _ in range(4):
+    out = []
+    for _ in range(pairs):
         x = (torch.randn(shape, generator=g, device=dev) * 0.2
              + 0.5).clamp(0, 1)
         y = x if same else (x + 0.1 * torch.randn(
             shape, generator=g, device=dev)).clamp(0, 1)
-        pairs.append((x.to(dtype), y.to(dtype).clone()))
+        out.append((x.to(dtype), y.to(dtype).clone()))
+    return out
+
+
+def ssim_bound(torch, shape, dtype):
+    """(bound ms, bound by, bytes, flops) of one SSIM call: x and y read
+    once, the (N, C) f32 planes written once; per output value 15
+    operations for the horizontal sums, 10 for the vertical ones, about 30
+    for the SSIM map and the clip, 1 to accumulate."""
+    n, h, w, c = shape
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 2 * n * h * w * c * esize + 4 * n * c
+    flops = 56 * n * (h - 2) * (w - 2) * c
+    b_ms, b_by = bound(nbytes, flops, PEAK_F32_FLOP_PER_S)
+    return b_ms, b_by, nbytes, flops
+
+
+def run_ssim_case(torch, kern, case, seed):
+    """Hold the fused SSIM kernel against its plain version per plane, assert
+    from a profiler trace that a call is one kernel launch and that repeats
+    give the same bits, print its launch plan, and time it beside the plain
+    version and a ``copy_`` of the same bytes (x read and written: what a
+    plain copy takes for the bytes the kernel must read). The timed launches
+    rotate over 4 input pairs (100 MB in f32 at the eval shape) so that none
+    finds its inputs in the 50 MB L2."""
+    name, shape, dtype_name, same = case
+    mod = kern.ssim
+    dtype = getattr(torch, dtype_name)
+    pairs = ssim_inputs(torch, shape, dtype, same, seed)
     x, y = pairs[0]
+    n, h, w, c = shape
+    plan = dict(mod.plan_for(x), active_clusters=mod.active_clusters(x))
+    print(f"SSIM plan {dtype_name} {shape}: " + json.dumps(plan), flush=True)
+    check(plan["active_clusters"] > 0,
+          f"{name}: the card holds no cluster of the plan {plan}")
     got = kern.ssim_planes(x, y)
     again = kern.ssim_planes(x, y)
     ref = kern.ssim_planes_plain(x, y)
     loss = kern.ssim_loss(x, y)
     torch.cuda.synchronize()
-    n, h, w, c = shape
     check(got.shape == (n, c) and got.dtype == torch.float32,
           f"{name}: output {tuple(got.shape)} {got.dtype}")
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
     check(bool(torch.equal(got, again)),
           f"{name}: two launches on the same inputs differ")
+    rows = kernels_on_card(torch, lambda: kern.ssim_planes(x, y))
+    check(len(rows) == 1 and rows[0][1] == 1 and "ssim_kernel" in rows[0][0],
+          f"{name}: kernels of one call {rows}")
     max_abs = float((got - ref).abs().max())
     loss_err = abs(float(loss) - float(ref.mean(dim=0).sum()))
     if same:
@@ -515,19 +557,17 @@ def run_ssim_case(torch, kern, case, seed):
             return fn(*pairs[turn[0]])
         return call
 
+    dst = torch.empty_like(x)
     ms = device_ms(torch, rotate(kern.ssim_planes), reps=200)
     plain_ms = device_ms(torch, rotate(kern.ssim_planes_plain), reps=40)
-    nbytes = 2 * x.numel() * x.element_size() + 4 * n * c
-    # per output value: 15 for the horizontal sums, 10 for the vertical
-    # ones, about 30 for the SSIM map and the clip, 1 to accumulate
-    flops = 56 * n * (h - 2) * (w - 2) * c
-    b_ms, b_by = bound(nbytes, flops, PEAK_F32_FLOP_PER_S)
+    copy_ms = device_ms(torch, rotate(lambda a, _: dst.copy_(a)), reps=200)
+    b_ms, b_by, nbytes, flops = ssim_bound(torch, shape, dtype)
     rec = dict(case=name, kernel="ssim_loss", shape=list(shape),
                dtype=dtype_name, max_abs_err=max_abs, loss_abs_err=loss_err,
                plane_err_bound=SSIM_PLANE_TOL, loss=float(loss), ms=ms,
-               plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by, flops=flops, bytes=nbytes,
-               roofline_share=b_ms / ms)
+               plain_ms=plain_ms, library_ms=None, copy_ms=copy_ms,
+               bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+               roofline_share=b_ms / ms, launches_a_call=1, plan=plan)
     print("case " + json.dumps(rec), flush=True)
     check(max_abs <= SSIM_PLANE_TOL,
           f"{name}: plane error {max_abs:.3e} > {SSIM_PLANE_TOL:.0e}")

@@ -16,11 +16,13 @@ def ssim_loss(x: torch.Tensor, y: torch.Tensor,
               use_kernel: bool = False) -> torch.Tensor:
     """x, y (N, H, W, C) -> scalar: sum over C of the mean (1 - SSIM) / 2.
 
-    ``use_kernel=True`` takes the fused path (``ops/kernels/ssim.py``): one
-    kernel launch for CUDA tensors, its plain version for CPU tensors. Its
-    backward re-runs the plain formula, so only paths that are never
-    differentiated ask for it (``CombinedLoss.eval_variant``). The default
-    is the plain formula under ordinary autograd."""
+    ``use_kernel=True`` takes the fused path (``ops/kernels/ssim.py``): for
+    CUDA tensors one kernel launch, which streams each image's rows through
+    a thread-block cluster once and merges its sums in the cluster; its
+    plain version for CPU tensors. Its backward re-runs the plain formula,
+    so only paths that are never differentiated ask for it
+    (``CombinedLoss.eval_variant``). The default is the plain formula under
+    ordinary autograd."""
     if use_kernel:
         return _kernel.ssim_loss(x, y)
     return _kernel.ssim_planes_plain(x, y).mean(dim=0).sum()

@@ -37,9 +37,9 @@ _SIGNATURES = {
         "vlg_fused_lateral": ([_P] * 9 + [_I] * 8 + [_P], _I),
     },
     "ssim": {
-        "vlg_ssim_planes": ([_P] * 4 + [_I] * 5 + [_P], _I),
-        "vlg_ssim_partials": ([_I] * 4, ctypes.c_longlong),
-        "vlg_ssim_smem": ([_I], ctypes.c_longlong),
+        "vlg_ssim_planes": ([_P] * 3 + [_I] * 12 + [_P], _I),
+        "vlg_ssim_active_clusters": ([_I] * 12, _I),
+        "vlg_ssim_cluster_capacity": ([_I], _I),
     },
     "instance_norm": {
         "vlg_instance_norm_fwd": ([_P] * 3 + [_I] * 3 + [ctypes.c_float]
