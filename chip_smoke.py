@@ -33,7 +33,10 @@ Phases:
      each call is one kernel launch and that repeats give the same bits;
      hold kernel A's data gradient (a second launch of A) against autograd
      of the plain version at the conv -> ReLU shapes, beside cuDNN's bf16
-     input gradient and its bound. Every time is device time from a
+     input gradient and its bound; hold the backward of A's and B's
+     autograd Functions (the library's VJP, which launches neither) against
+     autograd of the plain versions at GridNet's training shapes and time
+     it. Every time is device time from a
      torch.profiler trace (CUDA events where the profiler keeps coming
      back with an incomplete trace; the ``kernels`` line's ``timed_by``
      says which);
@@ -68,9 +71,22 @@ Phases:
      the same checks for both nets, then one wgangp step at batch 4 whose
      gradient penalty must be finite and non-zero;
   8. validation of the ResnetGenerator: one ``make_eval_step`` batch, which
-     launches the forward-only InstanceNorm kernel and the SSIM kernel.
+     launches the forward-only InstanceNorm kernel and the SSIM kernel;
+  9. GridNet train: 3 steps of ``make_train_step`` at b16 on the
+     10-channel GridNet at full width from the committed ``flagship_096``
+     snapshot (read with numpy through the weight bridge) and on the
+     CoordGridNet (the JAX package's default model) from ``--seed``, with
+     HNED and VGG19, bf16 activations, f32 parameters and Adam state;
+     launch counts asserted per step (93 A, 15 B), every parameter must
+     move and the weight-pack cache must not grow; step 1's loss terms and
+     every gradient (each tensor's L2 error printed) held against the plain
+     step; samples/s, wall and busy ms, idle share, a profile by kernel
+     group and peak memory at b16, and one timed step at b32;
+ 10. GridNet GAN train: 2 lsgan steps of ``make_gan_train_step`` on the
+     flagship GridNet with the full-width PatchGAN, the same checks for
+     both nets.
 
-The launch counters are set to 0 just before each of the phases 3-8 and
+The launch counters are set to 0 just before each of the phases 3-10 and
 read just after it; a kernel of a phase's path that was launched no time
 fails the run. Any failure exits non-zero. The line before the last is the
 ``kernels`` JSON object; the last line is ``{"ok": true, "device": {...}}``. With no CUDA
@@ -130,6 +146,21 @@ LAUNCHES_PER_RESNET_EVAL_STEP = dict(
     NO_LAUNCHES, prelu_conv3x3=2 * 13 + 2 * 12, ssim_loss=1,
     instance_norm_fwd_only=IN_PER_GEN)
 TRAIN_STEPS, GAN_STEPS, WGANGP_BATCH = 3, 2, 4
+# GridNet training: the GridNet forward (31 A + 15 B), HNED on frames 1 and 2
+# (26 A), VGG19 on output and target (24 A) and its data gradient (12 A);
+# A's and B's own backward is the library's and launches neither. The GAN
+# step adds the PatchGAN's InstanceNorms (3 forwards, each differentiated).
+LAUNCHES_PER_GRIDNET_TRAIN_STEP = dict(
+    NO_LAUNCHES, prelu_conv3x3=31 + 2 * 13 + 2 * 12 + 12, fused_lateral=15)
+LAUNCHES_PER_GRIDNET_GAN_STEP = dict(
+    LAUNCHES_PER_GRIDNET_TRAIN_STEP, instance_norm_fwd=3 * IN_PER_DISC,
+    instance_norm_bwd=3 * IN_PER_DISC)
+TRAIN_BATCH_LARGE = 32   # the JAX package's default batch: one timed step
+FLAGSHIP = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "artifacts_store", "flagship_096.npz")
+BWD_TOL = 2e-2       # A's and B's backward vs the plain version's autograd
+BWD_MEAN_TOL = 1e-2  # the same in the mean, B's PReLU1 mask flips included
+SLOPE_TOL = 2.0 ** -8   # a slope's gradient, of sum |terms|: bf16 rounding
 IN_F32_TOL = 1e-5    # max |kernel - plain|, f32, values of order 1
 IN_BF16_TOL = 2e-2   # of the plain version's largest value, bf16
 DGRAD_TOL = 2e-2     # kernel A's data gradient, of the largest value
@@ -824,6 +855,185 @@ def run_dgrad_case(torch, kern, case, seed):
     return rec
 
 
+def backward_cases():
+    """(kernel, name, shape (N, H, W, Ci), Co, stride, residual): kernel A's
+    and kernel B's Functions at GridNet's training shapes (batch 16)."""
+    r0, r1, r2 = ((BATCH, 256, 256), (BATCH, 128, 128), (BATCH, 64, 64))
+    return [("prelu_conv3x3", "A bwd prelu+res row0 32->32", r0 + (32,), 32,
+             1, True),
+            ("prelu_conv3x3", "A bwd stride2 32->64", r0 + (32,), 64, 2,
+             False),
+            ("prelu_conv3x3", "A bwd head 32->20", r0 + (32,), 20, 1, False),
+            ("fused_lateral", "B bwd row0 +res", r0 + (32,), 32, 1, True),
+            ("fused_lateral", "B bwd row1 +res", r1 + (64,), 64, 1, True),
+            ("fused_lateral", "B bwd row2 +res", r2 + (96,), 96, 1, True)]
+
+
+def lateral_on_own_intermediate(torch, kern, args):
+    """Kernel B's function in f32 math, as ``fused_lateral_plain`` computes
+    it, but with the intermediate's value (and so PReLU1's mask) taken from
+    the Function's backward, which recomputes it with the library's bf16
+    conv: the gradient of this is what that backward must match, value for
+    value. A value within rounding of zero may fall on the other side of
+    it in the plain version; there its slope, not 1, scales the gradient."""
+    from video_layout_generation_tpu_torch.ops.kernels.conv3x3 import (
+        conv3x3_plain_f32, prelu_plain)
+    x, w0, b0, a0, w1, b1, a1, res = args
+    z0 = conv3x3_plain_f32(prelu_plain(x, a0), w0, b0)
+    with torch.no_grad():
+        _, own = kern.lateral._conv0(x.detach(), w0.detach(), b0.detach(),
+                                     a0.detach())
+    y0 = z0 + (own.float() - z0).detach()
+    slope = a1.reshape(()).to(x.dtype).float()
+    y1 = torch.where(y0 >= 0, y0, (slope * y0).to(x.dtype).float())
+    out = conv3x3_plain_f32(y1, w1, b1)
+    if res is not None:
+        out = out + res.float()
+    return out.to(x.dtype), (own, y0)
+
+
+def run_backward_case(torch, kern, case, seed):
+    """The backward of kernel A's or kernel B's autograd Function (the
+    library's VJP, recomputed from the saved inputs) against autograd of
+    the plain version on the same bf16 inputs: dx, the weights, biases and
+    residual within ``BWD_TOL`` of their largest value, each slope within
+    ``SLOPE_TOL`` of the size of its terms (a sum over a whole activation
+    that random inputs make cancel about a thousandfold, so that bf16's
+    rounding of its terms moves it by a few percent of itself; the relative
+    error is printed). For kernel B these are held on the backward's
+    own intermediate (``lateral_on_own_intermediate``: PReLU1's mask is a
+    step, and the library's recomputation rounds conv0's output before its
+    bias where the kernel rounds once), and every tensor's mean error
+    against the plain version itself within ``BWD_MEAN_TOL`` of its mean
+    value, with the share of flipped mask entries printed. Asserts that the
+    backward launches no kernel of the port, and times it (device time)
+    beside the plain version's backward."""
+    kernel, name, shape, co, stride, with_res = case
+    n, h, w, ci = shape
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*s, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*s, generator=g, device=dev) * scale).to(dtype)
+
+    x = randn(n, h, w, ci)
+    res = randn(n, ho, wo, co) if with_res else None
+    dy = randn(n, ho, wo, co)
+    if kernel == "prelu_conv3x3":
+        args = [x, randn(3, 3, ci, co, scale=(9 * ci) ** -0.5),
+                randn(co, scale=0.1, dtype=torch.float32),
+                torch.tensor(0.25, device=dev), res]
+        names = ["x", "w", "b", "alpha", "residual"]
+        fn, plain = kern.prelu_conv3x3, kern.prelu_conv3x3_plain
+        extra = (stride,)
+        flops = 2 * 2 * n * ho * wo * co * 9 * ci
+        n_convs = 1
+    else:
+        args = [x, randn(3, 3, ci, ci, scale=(9 * ci) ** -0.5),
+                randn(ci, scale=0.1, dtype=torch.float32),
+                torch.tensor(0.25, device=dev),
+                randn(3, 3, ci, ci, scale=(9 * ci) ** -0.5),
+                randn(ci, scale=0.1, dtype=torch.float32),
+                torch.tensor(0.1, device=dev), res]
+        names = ["x", "w0", "b0", "a0", "w1", "b1", "a1", "residual"]
+        fn, plain = kern.fused_lateral, kern.fused_lateral_plain
+        extra = ()
+        flops = 2 * 2 * 2 * n * h * w * ci * 9 * ci
+        n_convs = 2
+    present = [i for i, a in enumerate(args) if a is not None]
+
+    def grads_of(f):
+        """(output, gradients of the present arguments, extra) of f on
+        fresh leaves."""
+        leaves = list(args)
+        for i in present:
+            leaves[i] = args[i].clone().requires_grad_(True)
+        y, more = f(leaves)
+        wrt = [leaves[i] for i in present]
+        return y, wrt, torch.autograd.grad(y, wrt, dy, retain_graph=True), \
+            more
+
+    yk, wrt_k, gk, _ = grads_of(lambda a: (fn(*a, *extra), None))
+    before = kern.launch_counts()
+    gk = torch.autograd.grad(yk, wrt_k, dy, retain_graph=True)
+    torch.cuda.synchronize()
+    check(kern.launch_counts() == before,
+          f"{name}: the backward launched a kernel of the port")
+    yp, wrt_p, gp, _ = grads_of(lambda a: (plain(*a, *extra), None))
+    flips = 0.0
+    # a slope's gradient is sum(v * g) over the negative entries v of its
+    # PReLU's input, g the gradient of its output, which is the gradient of
+    # v over the slope there: sum(|v * g|) is the size of its terms
+    if kernel == "fused_lateral":
+        yo, _, go, (own, y0o) = grads_of(
+            lambda a: lateral_on_own_intermediate(torch, kern, a))
+        dy0, = torch.autograd.grad(yo, [y0o], dy, retain_graph=True)
+        with torch.no_grad():
+            z0 = kern.conv3x3.conv3x3_plain_f32(
+                kern.conv3x3.prelu_plain(x, args[3]), args[1],
+                args[2]).to(x.dtype)
+        flips = float(((own < 0) != (z0 < 0)).float().mean())
+        slope_inputs = {"a0": (x, go[0], args[3]),
+                        "a1": (own, dy0, args[6])}
+    else:
+        go = gp
+        slope_inputs = {"alpha": (x, go[0], args[3])}
+    terms = {k: float((torch.where(v < 0, v.float(), 0.0) * gv.float()
+                       ).abs().sum() / float(a))
+             for k, (v, gv, a) in slope_inputs.items()}
+    errs, mean_errs, slope_errs = {}, {}, {}
+    for i, a, o, p in zip(present, gk, go, gp):
+        check(a.shape == p.shape and bool(torch.isfinite(a.float()).all()),
+              f"{name}: gradient of {names[i]} {tuple(a.shape)}")
+        a, o, p = a.float(), o.float(), p.float()
+        k = names[i]
+        if k in terms:
+            slope_errs[k] = dict(
+                of_terms=float((a - o).abs()) / terms[k],
+                relative=float((a - o).abs() / o.abs().clamp_min(1e-30)),
+                relative_to_plain=float((a - p).abs()
+                                        / p.abs().clamp_min(1e-30)),
+                cancellation=terms[k] / max(float(o.abs()), 1e-30))
+            continue
+        errs[k] = float((a - o).abs().max() / o.abs().max().clamp_min(1e-30))
+        mean_errs[k] = float((a - p).abs().mean()
+                             / p.abs().mean().clamp_min(1e-30))
+    ms = device_ms(torch, lambda: torch.autograd.grad(
+        yk, wrt_k, dy, retain_graph=True), reps=10)
+    plain_ms = device_ms(torch, lambda: torch.autograd.grad(
+        yp, wrt_p, dy, retain_graph=True), reps=5)
+    # the VJP's least work: dx and dW of each conv (two products of the
+    # forward's size each); x and dy read once, dx and the residual's
+    # gradient written once, each kernel read and its gradient written once
+    nbytes = (2 * (2 * x.numel() + dy.numel()
+                   + (res.numel() if with_res else 0))
+              + 2 * 2 * n_convs * 9 * ci * co + 8 * co)
+    b_ms, b_by = bound(nbytes, flops)
+    rec = dict(case=name, kernel=kernel, shape=list(shape), co=co,
+               stride=stride, backward="library VJP (aten "
+               "convolution_backward, bf16)", norm_err=errs,
+               norm_err_bound=BWD_TOL, mean_err_vs_plain=mean_errs,
+               mean_err_bound=BWD_MEAN_TOL, slope_err=slope_errs,
+               slope_err_bound=SLOPE_TOL, prelu1_mask_flips=flips, ms=ms,
+               plain_ms=plain_ms, library_ms=ms, bound_ms=b_ms,
+               bound_by=b_by, flops=flops, bytes=nbytes,
+               roofline_share=b_ms / ms)
+    print("case " + json.dumps(rec), flush=True)
+    for k, e in errs.items():
+        check(e <= BWD_TOL, f"{name}: gradient of {k} differs from the "
+              f"plain version's by {e:.3e} > {BWD_TOL:.0e} of its maximum")
+    for k, e in mean_errs.items():
+        check(e <= BWD_MEAN_TOL, f"{name}: gradient of {k}: mean error "
+              f"against the plain version {e:.3e} > {BWD_MEAN_TOL:.0e} of "
+              f"its mean")
+    for k, e in slope_errs.items():
+        check(e["of_terms"] <= SLOPE_TOL, f"{name}: gradient of {k} "
+              f"differs by {e['of_terms']:.3e} of the size of its terms "
+              f"> {SLOPE_TOL:.1e}")
+    return rec
+
+
 # ---- phase 3: the serving slice --------------------------------------------
 
 def random_flat_params(seed: int, n_channels: int = 8):
@@ -1007,14 +1217,37 @@ def in_launches(per_step) -> tuple:
     return per_step["instance_norm_fwd"], per_step["instance_norm_bwd"]
 
 
+# (label, substrings of a kernel's name) for the device-time breakdown of a
+# profiled call; the first label that matches takes the row
+KERNEL_GROUPS = (
+    ("kernel A", ("conv3x3_mma_kernel",)),
+    ("kernel B", ("fused_lateral_mma_kernel",)),
+    ("InstanceNorm", ("instance_norm_",)),
+    ("SSIM", ("ssim_kernel",)),
+    ("cuDNN backward", ("dgrad", "wgrad")),
+    ("cuDNN forward", ("fprop",)),
+    ("upsample", ("upsample",)),
+)
+
+
+def kernel_group(key: str) -> str:
+    low = key.lower()
+    for label, names in KERNEL_GROUPS:
+        if any(n in low for n in names):
+            return label
+    return "other"
+
+
 def profile_call(name, fn, in_launches=(0, 0)):
     """Device time by kernel over one call of ``fn`` (which must end in a
     fetch or a synchronize), and the device's busy time beside the call's
     wall time. Only rows of kernels and copies are summed (``on_device``),
     so that no device time is counted twice. A trace with no kernel, or
     with other counts of the InstanceNorm kernels than ``in_launches``
-    (forward, backward), is taken again, as in ``device_ms``. Returns the
-    InstanceNorm kernels' device ms (forward, backward)."""
+    (forward, backward), is taken again, as in ``device_ms``. Returns
+    ``wall_ms``, ``busy_ms``, ``idle`` (share), the InstanceNorm kernels'
+    device ms ``in_fwd`` and ``in_bwd``, and ``groups``: device ms by
+    ``KERNEL_GROUPS``."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     for attempt in range(TRACE_TRIES):
@@ -1039,9 +1272,13 @@ def profile_call(name, fn, in_launches=(0, 0)):
                            f"{TRACE_TRIES} tries")
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
+    groups = {}
+    for dev_us, _, key in rows:
+        label = kernel_group(key)
+        groups[label] = groups.get(label, 0.0) + dev_us / 1e3
     print(f"profile [{name}]: wall {wall * 1e3:.1f} ms, device busy "
-          f"{busy_s * 1e3:.1f} ms, idle share {1 - busy_s / wall:.3f}",
-          flush=True)
+          f"{busy_s * 1e3:.1f} ms, idle share {1 - busy_s / wall:.3f}; "
+          f"device ms by group " + json.dumps(groups), flush=True)
     # the 15 largest rows, and the SSIM and InstanceNorm kernels wherever
     # they rank
     small = ("ssim_", "instance_norm_")
@@ -1049,8 +1286,11 @@ def profile_call(name, fn, in_launches=(0, 0)):
             r for r in rows[15:] if any(k in r[2] for k in small)]:
         print(f"profile: {dev_us / 1e3:9.2f} ms {count:6d}x {key[:90]}",
               flush=True)
-    return tuple(sum(r[0] for r in rows if k in r[2]) / 1e3
-                 for k in IN_KERNELS)
+    in_fwd, in_bwd = (sum(r[0] for r in rows if k in r[2]) / 1e3
+                      for k in IN_KERNELS)
+    return dict(wall_ms=wall * 1e3, busy_ms=busy_s * 1e3,
+                idle=1 - busy_s / wall, in_fwd=in_fwd, in_bwd=in_bwd,
+                groups=groups)
 
 
 # ---- phases 4 and 5: the edge-mode validation step and rollout ---------------
@@ -1497,6 +1737,18 @@ def snapshot(model):
     return {k: p.detach().clone() for k, p in model.named_parameters()}
 
 
+def timed_steps(torch, step, state, batches, n=3):
+    """Host-clock times of ``n`` steps, each ending in a fetch."""
+    times = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(state, batches[i % len(batches)])
+        float(m["loss"])
+        times.append(time.perf_counter() - t0)
+    return times
+
+
 TRAIN_TERMS = ("loss", "loss_l1", "loss_style", "loss_seg")
 GAN_TERMS = TRAIN_TERMS + ("loss_gan", "loss_d", "loss_d_fake", "loss_d_real")
 
@@ -1583,25 +1835,22 @@ def run_train(torch, kern, weights, seed: int):
           f"gradient of {vgg['max_at']} differs by {vgg['max']:.3e} > "
           f"{GRAD_TOL:.0e}")
 
-    times = []
-    for i in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, m = step(state, batches[i % TRAIN_STEPS])
-        float(m["loss"])                      # ends in a fetch
-        times.append(time.perf_counter() - t0)
+    times = timed_steps(torch, step, state, batches)
     sps = BATCH / min(times)
     torch.cuda.reset_peak_memory_stats()
-    in_fwd, in_bwd = profile_call(
+    prof = profile_call(
         "train step b16", lambda: float(step(state, batches[0])[1]["loss"]),
         in_launches=in_launches(LAUNCHES_PER_TRAIN_STEP))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    in_fwd, in_bwd = prof["in_fwd"], prof["in_bwd"]
     print(f"train timing: b{BATCH} step times s {json.dumps(times)}; train "
           f"samples/s {sps:.1f}; peak memory of one step {peak:.2f} GiB; "
           f"InstanceNorm device ms per step {in_fwd + in_bwd:.4f} (forward "
           f"{in_fwd:.4f}, backward {in_bwd:.4f})", flush=True)
     return launches, dict(samples_per_s=sps, terms=terms, grad_err=e2e,
-                          losses=history)
+                          losses=history, wall_ms=prof["wall_ms"],
+                          busy_ms=prof["busy_ms"], idle=prof["idle"],
+                          peak_gib=peak)
 
 
 def build_gan(torch, weights, seed, plain, gan_mode="lsgan"):
@@ -1674,17 +1923,12 @@ def run_gan(torch, kern, weights, seed: int):
               f"{e2e['l2_at']} differs from the plain step by "
               f"{e2e['l2']:.3e} > {GRAD_E2E_TOL} in the L2 norm")
 
-    times = []
-    for i in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, m = step(state, batches[i % GAN_STEPS])
-        float(m["loss"])
-        times.append(time.perf_counter() - t0)
+    times = timed_steps(torch, step, state, batches)
     sps = BATCH / min(times)
-    in_fwd, in_bwd = profile_call(
+    prof = profile_call(
         "GAN step b16", lambda: float(step(state, batches[0])[1]["loss"]),
         in_launches=in_launches(LAUNCHES_PER_GAN_STEP))
+    in_fwd, in_bwd = prof["in_fwd"], prof["in_bwd"]
     print(f"GAN train timing: b{BATCH} step times s {json.dumps(times)}; GAN "
           f"train samples/s {sps:.1f}; InstanceNorm device ms per step "
           f"{in_fwd + in_bwd:.4f} (forward {in_fwd:.4f}, backward "
@@ -1758,6 +2002,267 @@ def run_resnet_validation(torch, kern, weights, seed: int):
     return launches, dict(terms=terms, agreement=agree)
 
 
+# ---- phases 9 and 10: training GridNet and CoordGridNet ---------------------
+#
+# The JAX package's default configuration: CoordGridNet, 10 channels in,
+# filters 32/64/96, bf16 activations, f32 parameters and Adam(2e-4, 0.5)
+# state; here also the plain GridNet on the trained flagship_096 snapshot,
+# read with numpy through the weight bridge (the first agreement with
+# trained weights on the card). GridNet's forward is kernels A and B; their
+# backward is the library's VJP (cuDNN, bf16), which launches neither.
+
+def flagship_flat():
+    """The committed flagship_096 snapshot (10-channel GridNet at full
+    width, ``params/...`` keys) as a dict of numpy arrays."""
+    with np.load(FLAGSHIP) as snap:
+        return {k: snap[k] for k in snap.files}
+
+
+def gridnet_train_weights(seed: int) -> dict:
+    """The two trained nets' weights: GridNet from the snapshot,
+    CoordGridNet made with numpy from ``seed``."""
+    from video_layout_generation_tpu_torch.models import CoordGridNet
+    return {"GridNet": flagship_flat(),
+            "CoordGridNet": _random_flat(
+                CoordGridNet(n_channels=10, filters_level=FILTERS),
+                seed + 110, gain=1.0)}
+
+
+def build_gridnet(torch, arch, flat):
+    from video_layout_generation_tpu_torch.io.weights import params_from_flax
+    from video_layout_generation_tpu_torch.models import get_model_cls
+    net = get_model_cls(arch)(n_channels=10, filters_level=FILTERS,
+                              dtype=torch.bfloat16)
+    net.load_state_dict(params_from_flax(flat), strict=True)
+    return net
+
+
+def frozen_nets(torch, weights):
+    """(HNED, CombinedLoss) of the training paths, bf16, from the seeded
+    weights; the step factories move them to the card."""
+    from video_layout_generation_tpu_torch.io.weights import params_from_flax
+    from video_layout_generation_tpu_torch.losses import CombinedLoss
+    from video_layout_generation_tpu_torch.models import HNED
+    hned = HNED(dtype=torch.bfloat16)
+    hned.load_state_dict(params_from_flax(weights["hned"]), strict=True)
+    return hned, CombinedLoss.create(params=weights["vgg"], device=DEVICE)
+
+
+def gridnet_step(torch, weights, flat, arch, seed, plain=False):
+    """(net, step, state) of ``make_train_step`` on a fresh net."""
+    from video_layout_generation_tpu_torch.train.steps import make_train_step
+    net = build_gridnet(torch, arch, flat)
+    hned, combined = frozen_nets(torch, weights)
+    step = make_train_step(
+        net, hned, combined, flip_mode="batch", plain=plain, device=DEVICE,
+        generator=torch.Generator().manual_seed(seed + 120))
+    return net, step, recording_state(net, adam())
+
+
+def slopes_as_one(torch, grads):
+    """The gradients with GridNet's 60 scalar PReLU slopes stacked into one
+    vector ``"PReLU slopes"``: each slope's gradient is one sum over a whole
+    activation, some with heavy cancellation (a sum 1e4 times smaller than
+    the sum of its terms' sizes, seen at 32x32 on the CPU), so that bf16's
+    rounding of the terms moves it by more than its own size. As one tensor
+    each slope's error counts against the size of all of them."""
+    slopes = sorted(k for k in grads if k.endswith(".alpha"))
+    out = {k: v for k, v in grads.items() if k not in slopes}
+    out["PReLU slopes"] = torch.stack([grads[k].reshape(()) for k in slopes])
+    return out
+
+
+def per_tensor_l2(torch, got, want):
+    """|got - want| / |want| in L2 for every tensor, by name."""
+    return {k: float((got[k] - w).float().norm()
+                     / max(float(w.float().norm()), 1e-30))
+            for k, w in want.items()}
+
+
+def run_gridnet_train(torch, kern, weights, train_flats, seed: int):
+    """``TRAIN_STEPS`` steps of GridNet (flagship) and of CoordGridNet
+    (seeded) at b16 with the launch counts of every step, then each one's
+    step 1 against the plain step, timings, a profile, and one b32 step."""
+    batches = [make_packed_batch(BATCH, seed + 130 + i)
+               for i in range(TRAIN_STEPS)]
+    runs = {}
+    kern.reset_launch_counts()
+    for arch, flat in train_flats.items():
+        net, step, state = gridnet_step(torch, weights, flat, arch, seed)
+        check(all(p.device.type == torch.device(DEVICE).type
+                  and p.dtype == torch.float32 for p in net.parameters()),
+              f"{arch}: make_train_step left the net off the device, or "
+              f"not f32")
+        start = snapshot(net)
+        history, packs, first = [], [], None
+        for i, batch in enumerate(batches):
+            (_, metrics), _ = counted_call(
+                torch, kern, f"{arch} train step {i + 1}",
+                lambda: step(state, batch), LAUNCHES_PER_GRIDNET_TRAIN_STEP)
+            history.append({k: float(v) for k, v in metrics.items()})
+            packs.append(len(kern.conv3x3._PACKS))
+            if first is None:
+                first = (metrics, state.last_grads)
+        check(state.step == TRAIN_STEPS, f"{arch}: step counter {state.step}")
+        for m in history:
+            check(all(np.isfinite(v) for v in m.values()),
+                  f"{arch} train: loss {m}")
+        check_moved(torch, f"{arch} train", start, net, set())
+        check(packs[0] == packs[-1], f"{arch}: the weight-pack cache grew "
+              f"over the steps: {packs}")
+        runs[arch] = dict(net=net, step=step, state=state, first=first,
+                          history=history, packs=packs)
+    launches = kern.launch_counts()
+    print(f"GridNet train: {TRAIN_STEPS} steps of b{BATCH} each of "
+          f"{list(train_flats)}; launches per step "
+          f"{LAUNCHES_PER_GRIDNET_TRAIN_STEP}; total {launches}; losses "
+          + json.dumps({a: r["history"] for a, r in runs.items()})
+          + "; weight-pack cache entries after each step "
+          + json.dumps({a: r["packs"] for a, r in runs.items()}), flush=True)
+
+    stats = {}
+    for arch, r in runs.items():
+        _, ref_step, ref_state = gridnet_step(
+            torch, weights, train_flats[arch], arch, seed, plain=True)
+        _, ref_metrics = ref_step(ref_state, batches[0])
+        ref_grads = ref_state.last_grads
+        del ref_step, ref_state
+        metrics, grads = r["first"]
+        terms = compare_terms(f"{arch} train step 1", metrics, ref_metrics,
+                              TRAIN_TERMS)
+        e2e = grad_errors(torch, f"{arch} train step 1",
+                          slopes_as_one(torch, grads),
+                          slopes_as_one(torch, ref_grads), set())
+        each = per_tensor_l2(torch, grads, ref_grads)
+        del ref_grads
+        print(f"{arch} train step 1 vs plain: " + json.dumps(terms)
+              + f"; gradients of all {len(each)} tensors (the PReLU slopes "
+              "as one), end to end "
+              + json.dumps(e2e) + "; L2 error of each tensor "
+              + json.dumps(each), flush=True)
+        check(e2e["l2"] <= GRAD_E2E_TOL, f"{arch} train step 1: gradient "
+              f"of {e2e['l2_at']} differs from the plain step by "
+              f"{e2e['l2']:.3e} > {GRAD_E2E_TOL} in the L2 norm")
+
+        times = timed_steps(torch, r["step"], r["state"], batches)
+        sps = BATCH / min(times)
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_call(
+            f"{arch} train step b{BATCH}",
+            lambda: float(r["step"](r["state"], batches[0])[1]["loss"]))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        big = [make_packed_batch(TRAIN_BATCH_LARGE, seed + 140)]
+        r["step"](r["state"], big[0])                       # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        big_times = timed_steps(torch, r["step"], r["state"], big, n=2)
+        big_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        stats[arch] = dict(
+            samples_per_s=sps, wall_ms=prof["wall_ms"],
+            busy_ms=prof["busy_ms"], idle=prof["idle"], peak_gib=peak,
+            groups=prof["groups"], terms=terms, grad_err=e2e,
+            b32_samples_per_s=TRAIN_BATCH_LARGE / min(big_times),
+            b32_peak_gib=big_peak)
+        print(f"{arch} train timing: b{BATCH} step times s "
+              f"{json.dumps(times)}; train samples/s {sps:.1f}; wall "
+              f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} "
+              f"ms, idle share {prof['idle']:.3f}; peak memory of one step "
+              f"{peak:.2f} GiB; b{TRAIN_BATCH_LARGE} step times s "
+              f"{json.dumps(big_times)}, samples/s "
+              f"{stats[arch]['b32_samples_per_s']:.1f}, peak "
+              f"{big_peak:.2f} GiB", flush=True)
+    return launches, stats
+
+
+def run_gridnet_gan(torch, kern, weights, train_flats, seed: int):
+    """``GAN_STEPS`` lsgan steps of the flagship GridNet against the
+    full-width PatchGAN, with the same checks as the train phase."""
+    from video_layout_generation_tpu_torch.io.weights import params_from_flax
+    from video_layout_generation_tpu_torch.models import NLayerDiscriminator
+    from video_layout_generation_tpu_torch.train.gan import (
+        GanTrainState, make_gan_train_step)
+
+    def build(plain):
+        gen = build_gridnet(torch, "GridNet", train_flats["GridNet"])
+        disc = NLayerDiscriminator(9, NDF, n_layers=3, norm="instance",
+                                   dtype=torch.bfloat16)
+        disc.load_state_dict(params_from_flax(weights["disc"]), strict=True)
+        hned, combined = frozen_nets(torch, weights)
+        step = make_gan_train_step(
+            gen, disc, hned, combined, gan_mode="lsgan", flip_mode="batch",
+            plain=plain, device=DEVICE,
+            generator=torch.Generator().manual_seed(seed + 150))
+        state = GanTrainState(gen=recording_state(gen, adam()),
+                              disc=recording_state(disc, adam()))
+        return gen, disc, step, state
+
+    gen, disc, step, state = build(False)
+    batches = [make_packed_batch(BATCH, seed + 160 + i)
+               for i in range(GAN_STEPS)]
+    start_g, start_d = snapshot(gen), snapshot(disc)
+    kern.reset_launch_counts()
+    history, first = [], None
+    for i, batch in enumerate(batches):
+        (_, metrics), _ = counted_call(
+            torch, kern, f"GridNet GAN step {i + 1}",
+            lambda: step(state, batch), LAUNCHES_PER_GRIDNET_GAN_STEP)
+        history.append({k: float(v) for k, v in metrics.items()})
+        if first is None:
+            first = (metrics, state.gen.last_grads, state.disc.last_grads)
+    launches = kern.launch_counts()
+    print(f"GridNet GAN train: {GAN_STEPS} steps of b{BATCH}; launches per "
+          f"step {LAUNCHES_PER_GRIDNET_GAN_STEP}; total {launches}; losses "
+          f"{json.dumps(history)}", flush=True)
+    check(state.step == GAN_STEPS and state.disc.step == GAN_STEPS,
+          f"GridNet GAN train: step counters {state.step}, "
+          f"{state.disc.step}")
+    for m in history:
+        check(all(np.isfinite(v) for v in m.values()),
+              f"GridNet GAN train: loss {m}")
+    dead_d = disc_dead_biases(disc)
+    check_moved(torch, "GridNet GAN train, generator", start_g, gen, set())
+    check_moved(torch, "GridNet GAN train, discriminator", start_d, disc,
+                dead_d)
+
+    _, _, ref_step, ref_state = build(True)
+    _, ref_metrics = ref_step(ref_state, batches[0])
+    ref = (ref_metrics, ref_state.gen.last_grads, ref_state.disc.last_grads)
+    del ref_step, ref_state
+    terms = compare_terms("GridNet GAN step 1", first[0], ref[0], GAN_TERMS)
+    e2e_g = grad_errors(torch, "GridNet GAN step 1, generator",
+                        slopes_as_one(torch, first[1]),
+                        slopes_as_one(torch, ref[1]), set())
+    e2e_d = grad_errors(torch, "GridNet GAN step 1, discriminator", first[2],
+                        ref[2], dead_d)
+    each = per_tensor_l2(torch, first[1], ref[1])
+    del ref
+    print("GridNet GAN step 1 vs plain: " + json.dumps(terms) + "; gradients "
+          "end to end: generator " + json.dumps(e2e_g) + ", discriminator "
+          + json.dumps(e2e_d) + "; L2 error of each generator tensor "
+          + json.dumps(each), flush=True)
+    for net, e2e in (("generator", e2e_g), ("discriminator", e2e_d)):
+        check(e2e["l2"] <= GRAD_E2E_TOL, f"GridNet GAN step 1, {net}: "
+              f"gradient of {e2e['l2_at']} differs from the plain step by "
+              f"{e2e['l2']:.3e} > {GRAD_E2E_TOL} in the L2 norm")
+
+    times = timed_steps(torch, step, state, batches)
+    sps = BATCH / min(times)
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_call(
+        f"GridNet GAN step b{BATCH}",
+        lambda: float(step(state, batches[0])[1]["loss"]),
+        in_launches=in_launches(LAUNCHES_PER_GRIDNET_GAN_STEP))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"GridNet GAN train timing: b{BATCH} step times s "
+          f"{json.dumps(times)}; GAN train samples/s {sps:.1f}; wall "
+          f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms, "
+          f"idle share {prof['idle']:.3f}; peak memory of one step "
+          f"{peak:.2f} GiB", flush=True)
+    return launches, dict(samples_per_s=sps, wall_ms=prof["wall_ms"],
+                          busy_ms=prof["busy_ms"], idle=prof["idle"],
+                          peak_gib=peak, terms=terms,
+                          grad_err=dict(gen=e2e_g, disc=e2e_d))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1813,6 +2318,9 @@ def main(argv=None) -> int:
     cases += [tag_timing(lambda: run_dgrad_case(torch, kern, c,
                                                 args.seed + 300 + i))
               for i, c in enumerate(kernel_cases()) if c[7]]   # relu_out
+    cases += [tag_timing(lambda: run_backward_case(torch, kern, c,
+                                                   args.seed + 400 + i))
+              for i, c in enumerate(backward_cases())]
     if EVENT_TIMED:
         print(f"timing: {len(EVENT_TIMED)} timings taken with CUDA events "
               f"(incomplete profiler traces)", flush=True)
@@ -1830,18 +2338,27 @@ def main(argv=None) -> int:
     by_path["GAN train"], gan_stats = run_gan(torch, kern, weights, args.seed)
     by_path["ResnetGenerator validation"], _ = run_resnet_validation(
         torch, kern, weights, args.seed)
+    train_flats = gridnet_train_weights(args.seed)
+    by_path["GridNet train"], grid_stats = run_gridnet_train(
+        torch, kern, weights, train_flats, args.seed)
+    by_path["GridNet GAN train"], grid_gan_stats = run_gridnet_gan(
+        torch, kern, weights, train_flats, args.seed)
     expected = {"no-edge rollout": LAUNCHES_PER_ROLLOUT,
                 "validation": LAUNCHES_PER_EVAL_STEP,
                 "edge rollout": LAUNCHES_PER_EDGE_ROLLOUT,
                 "train": LAUNCHES_PER_TRAIN_STEP,
                 "GAN train": LAUNCHES_PER_GAN_STEP,
-                "ResnetGenerator validation": LAUNCHES_PER_RESNET_EVAL_STEP}
+                "ResnetGenerator validation": LAUNCHES_PER_RESNET_EVAL_STEP,
+                "GridNet train": LAUNCHES_PER_GRIDNET_TRAIN_STEP,
+                "GridNet GAN train": LAUNCHES_PER_GRIDNET_GAN_STEP}
     for path, counts in by_path.items():
         for name, per_call in expected[path].items():
             check(per_call == 0 or counts[name] > 0,
                   f"{name} was not launched on the {path} path")
 
     by_case = {c["case"]: c for c in cases}
+    backward_case = {"prelu_conv3x3": "A bwd prelu+res row0 32->32",
+                     "fused_lateral": "B bwd row0 +res"}
     entries = []
     for name, route in ROUTES.items():
         main = by_case[route["main_case"]]
@@ -1852,13 +2369,18 @@ def main(argv=None) -> int:
             launches_by_path=launches,
             # the constant plane's backward is 316 x dy (rstd = eps^-1/2):
             # its absolute error says nothing beside the others'
+            # the backward cases are the library's VJP, not the kernel
             max_abs_err=max(c["max_abs_err"] for c in cases
                             if c["kernel"] == name
-                            and c.get("kind") != "constant"),
+                            and c.get("kind") != "constant"
+                            and "backward" not in c),
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"], shape=main["case"],
             timed_by=main["timed_by"]))
+        if name in backward_case:   # the library's VJP, GridNet training
+            entries[-1]["backward_library_ms"] = by_case[
+                backward_case[name]]["ms"]
     print(f"card: {card}; rollout frames/s at b{BATCH}: "
           f"{slice_stats['fps']:.1f}; b1 latency "
           f"{slice_stats['b1_latency_s'] * 1e3:.1f} ms; validation samples/s "
@@ -1868,6 +2390,20 @@ def main(argv=None) -> int:
           f"samples/s at b{BATCH}: {train_stats['samples_per_s']:.1f}; GAN "
           f"train samples/s at b{BATCH}: {gan_stats['samples_per_s']:.1f}",
           flush=True)
+    resnet = dict(samples_per_s=train_stats["samples_per_s"],
+                  wall_ms=train_stats["wall_ms"],
+                  busy_ms=train_stats["busy_ms"], idle=train_stats["idle"],
+                  peak_gib=train_stats["peak_gib"])
+    keep = ("samples_per_s", "wall_ms", "busy_ms", "idle", "peak_gib",
+            "b32_samples_per_s", "b32_peak_gib")
+    print(f"training at b{BATCH}, card {card}: " + json.dumps(dict(
+        ResnetGenerator=resnet,
+        **{arch: {k: v for k, v in st.items() if k in keep}
+           for arch, st in grid_stats.items()},
+        GridNet_GAN={k: v for k, v in grid_gan_stats.items() if k in keep},
+        device_ms_by_group={arch: st["groups"]
+                            for arch, st in grid_stats.items()})),
+        flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

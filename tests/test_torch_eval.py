@@ -217,8 +217,9 @@ def test_eval_step_plain_flag_and_weights(port_side, eval_pair):
                                    device="cpu")(batches[0])[0]
     np.testing.assert_allclose(float(scaled["loss"]) * 10.0,
                                float(got[0][0]["loss"]), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="train step"):
-        tsteps.make_train_step(p["model"], p["hned"], p["combined"])
+    # the train step takes the same GridNet
+    assert callable(tsteps.make_train_step(p["model"], p["hned"],
+                                           p["combined"], device="cpu"))
 
 
 def test_eval_entry_points_default_to_the_card_and_raise_without_one(

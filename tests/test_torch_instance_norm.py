@@ -232,22 +232,30 @@ def test_kernel_a_data_gradient_matches_autograd_of_the_plain_version(
 
 
 def test_kernel_a_refuses_the_gradients_it_has_no_kernel_for():
+    """No gradient is refused any more: every case that kernel A's data
+    gradient does not cover, and any gradient through kernel B, takes the
+    Function whose backward is the library's VJP; with autograd off
+    everything runs as before."""
     x = torch.zeros(1, 4, 4, 8, requires_grad=True)
     w, b = torch.zeros(3, 3, 8, 8), torch.zeros(8)
     alpha = torch.tensor(0.25)
-    with pytest.raises(NotImplementedError, match="no weight-gradient"):
-        tconv.prelu_conv3x3(x.detach(), w.clone().requires_grad_(True), b)
-    with pytest.raises(NotImplementedError, match="no weight-gradient"):
-        tconv.prelu_conv3x3(x.detach(), w, b, alpha.requires_grad_(True))
-    with pytest.raises(NotImplementedError, match="stride-2 data-gradient"):
-        tconv.prelu_conv3x3(x, w, b, stride=2)
-    with pytest.raises(NotImplementedError, match="PReLU"):
-        tconv.prelu_conv3x3(x, w, b, torch.tensor(0.25))
-    with pytest.raises(NotImplementedError, match="residual-gradient"):
-        tconv.prelu_conv3x3(x.detach(), w, b, residual=torch.zeros(
-            1, 4, 4, 8, requires_grad=True))
-    with pytest.raises(NotImplementedError, match="kernel B has no"):
-        kernels.fused_lateral(x, w, b, alpha.detach(), w, b, alpha.detach())
+
+    def fn(y):
+        return type(y.grad_fn).__name__
+
+    assert fn(tconv.prelu_conv3x3(x.detach(), w.clone().requires_grad_(True),
+                                  b)) == "_PreluConv3x3Backward"
+    assert fn(tconv.prelu_conv3x3(x.detach(), w, b, alpha.requires_grad_(
+        True))) == "_PreluConv3x3Backward"
+    assert fn(tconv.prelu_conv3x3(x, w, b, stride=2)) \
+        == "_PreluConv3x3Backward"
+    assert fn(tconv.prelu_conv3x3(x, w, b, torch.tensor(0.25))) \
+        == "_PreluConv3x3Backward"
+    assert fn(tconv.prelu_conv3x3(x.detach(), w, b, residual=torch.zeros(
+        1, 4, 4, 8, requires_grad=True))) == "_PreluConv3x3Backward"
+    assert fn(kernels.fused_lateral(x, w, b, alpha.detach(), w, b,
+                                    alpha.detach())) == "_FusedLateralBackward"
+    assert fn(tconv.prelu_conv3x3(x, w, b)) == "_Conv3x3DataGradBackward"
     # with autograd off everything still runs
     with torch.no_grad():
         assert tconv.prelu_conv3x3(x, w, b, alpha.detach(),

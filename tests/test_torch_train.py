@@ -344,16 +344,39 @@ def test_train_step_flips_and_keeps_training(step_pair):
                                device="cpu")
 
 
-def test_train_steps_refuse_a_gridnet_and_name_the_missing_kernels():
-    from video_layout_generation_tpu_torch.train.gan import \
-        make_gan_train_step
-    net = GridNet(n_channels=10, filters_level=(4, 6, 8))
-    with pytest.raises(NotImplementedError, match="train step") as e:
-        tsteps.make_train_step(net, None, None)
-    assert "weight-gradient" in str(e.value) and "GridNet" in str(e.value)
-    with pytest.raises(NotImplementedError, match="GAN train step") as e:
-        make_gan_train_step(net, None, None, None)
-    assert "kernel B" in str(e.value)
+def test_train_steps_refuse_a_gridnet_and_name_the_missing_kernels(
+        step_pair):
+    """Both step factories take a GridNet and a CoordGridNet (no longer
+    refused: kernels A and B differentiate through the library's VJP), and
+    two steps of each move every parameter."""
+    from video_layout_generation_tpu_torch.models import (
+        NLayerDiscriminator, get_model_cls)
+    from video_layout_generation_tpu_torch.train.gan import (
+        GanTrainState, make_gan_train_step)
+    _, hned, combined = step_pair["nets"]
+    batch = {"packed6": step_pair["packed"]}
+    for arch in ("GridNet", "CoordGridNet"):
+        net = get_model_cls(arch)(n_channels=10, filters_level=(4, 6, 8))
+        disc = NLayerDiscriminator(9, 4)
+        start = {k: p.detach().clone() for k, p in net.named_parameters()}
+        step = tsteps.make_train_step(
+            net, hned, combined, device="cpu",
+            generator=torch.Generator().manual_seed(0))
+        state = tstate.TrainState.create(net, tstate.make_optimizer())
+        gan = make_gan_train_step(
+            net, disc, hned, combined, device="cpu",
+            generator=torch.Generator().manual_seed(1))
+        gstate = GanTrainState(
+            gen=state, disc=tstate.TrainState.create(
+                disc, tstate.make_optimizer()))
+        state, m = step(state, batch)
+        gstate, gm = gan(gstate, batch)
+        assert np.isfinite(float(m["loss"])) and np.isfinite(
+            float(gm["loss"])) and np.isfinite(float(gm["loss_d"]))
+        still = [k for k, p in net.named_parameters()
+                 if torch.equal(p.detach(), start[k])]
+        assert not still, (arch, still[:3])
+        assert state.step == 2 and gstate.disc.step == 1
 
 
 def test_train_entry_points_default_to_the_card_and_raise_without_one(

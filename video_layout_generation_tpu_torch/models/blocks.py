@@ -13,11 +13,14 @@ before it fused in. A block takes the grid's additive fusion as
 ``residual`` and adds it in the last kernel's epilogue. ``plain=True``
 runs the kernels' plain PyTorch versions instead (the on-card reference).
 
-Forward only, but for one gradient: kernel A differentiates the stride-1
-conv without PReLU and residual with respect to its input (the VGG19 trunk
-of the perceptual loss). The blocks hand the kernels detached weights, and
-a GridNet is refused by the train steps until the weight-gradient kernels
-exist.
+Training: with autograd on, a block hands the kernels its live biases and
+PReLU slopes and, where the kernel requires grad, the differentiable cast
+``kernel.to(dtype)``; the kernels' autograd Functions then take every
+gradient from the library's VJP (cuDNN on the card, in the activation
+dtype; ``ops/kernels/conv3x3.py``, ``ops/kernels/lateral.py``), so the
+forward stays kernels A and B. Without grad (serving, validation) or with a
+frozen kernel (VGG19, whose data gradient is a launch of kernel A) the cast
+is made once and kept until the parameter changes in place.
 """
 
 from __future__ import annotations
@@ -67,8 +70,13 @@ class Conv3x3(nn.Module):
         self._cast = None
 
     def weight(self, dtype: torch.dtype) -> torch.Tensor:
-        """The kernel in the activation dtype, cast once and kept until the
-        parameter changes."""
+        """The kernel in the activation dtype. With grad enabled and a
+        kernel that requires grad, the differentiable cast, made anew each
+        call; otherwise a detached cast, made once and kept until the
+        parameter changes (its version counter moves: an optimizer's
+        in-place update)."""
+        if torch.is_grad_enabled() and self.kernel.requires_grad:
+            return self.kernel.to(dtype)
         k = self.kernel.detach()
         if k.dtype == dtype:
             return k
@@ -86,9 +94,8 @@ class Conv3x3(nn.Module):
                 residual: Optional[torch.Tensor] = None, stride: int = 1,
                 plain: bool = False, relu_out: bool = False
                 ) -> torch.Tensor:
-        a = None if alpha is None else alpha.detach()
-        return _conv_fn(plain)(x, self.weight(x.dtype), self.bias.detach(),
-                               a, residual, stride, relu_out)
+        return _conv_fn(plain)(x, self.weight(x.dtype), self.bias, alpha,
+                               residual, stride, relu_out)
 
 
 class LateralBlock(nn.Module):
@@ -110,9 +117,8 @@ class LateralBlock(nn.Module):
         if self.fused:
             fn = fused_lateral_plain if plain else fused_lateral
             c0, c1 = self.Conv_0, self.Conv_1
-            return fn(x, c0.weight(x.dtype), c0.bias.detach(),
-                      self.PReLU_0.alpha.detach(), c1.weight(x.dtype),
-                      c1.bias.detach(), self.PReLU_1.alpha.detach(),
+            return fn(x, c0.weight(x.dtype), c0.bias, self.PReLU_0.alpha,
+                      c1.weight(x.dtype), c1.bias, self.PReLU_1.alpha,
                       residual)
         s = residual
         if hasattr(self, "Conv_2"):

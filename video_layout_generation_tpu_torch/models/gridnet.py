@@ -12,6 +12,19 @@ Each grid addition is handed to the lateral block as its ``residual`` and
 lands in kernel B's epilogue. Per forward that makes 31 launches of kernel
 A (lateral_in 3, down_00 and down_10 2 each, 4 per column, 2 per head) and
 15 of kernel B (three in-grid laterals per column).
+
+Training (``train/steps.py:make_train_step``, ``train/gan.py``): the forward
+is the same 31 + 15 launches, once a step; the backward launches neither
+kernel. Every gradient of A and B (activations, kernels, biases, PReLU
+slopes, the residual that carries the grid's additions back to the down and
+up blocks that made it) is the library's VJP, recomputed from the inputs
+each Function saved (cuDNN in bf16 on the card; see
+``ops/kernels/conv3x3.py``, ``ops/kernels/lateral.py``), as the JAX
+package's Pallas kernels take ``jax.vjp`` of the XLA conv. The upsample,
+the CoordConv stem's coordinate channels and its stand-alone PReLU are
+torch ops under autograd. Parameters stay f32; the blocks hand the kernels
+a differentiable bf16 cast of each kernel, so the f32 gradient is the bf16
+one cast back, as in the JAX package's bf16 step.
 """
 
 from __future__ import annotations
@@ -81,7 +94,9 @@ class GridNet(nn.Module):
     """3x6 grid CNN with segmentation and image heads.
 
     ``dtype`` is the activation dtype (None keeps the input's); parameters
-    stay f32 and are cast to it for the kernels."""
+    stay f32 and are cast to it for the kernels, differentiably when
+    autograd is on. A forward is 31 launches of kernel A and 15 of kernel
+    B; under training their backward is the library's (module docstring)."""
 
     def __init__(self, n_channels: int = 10, seg_out: int = 20,
                  img_out: int = 3,

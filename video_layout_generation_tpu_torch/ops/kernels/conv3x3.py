@@ -17,12 +17,18 @@ and, for the data gradient, the flipped and transposed kernel, both from a
 cache keyed on the weight tensor and its version.
 
 Gradients: the data gradient of the stride-1 conv without PReLU and
-residual (the conv -> ReLU layers of the frozen VGG19 trunk, through which
-the perceptual loss is differentiated) is itself a launch of kernel A:
-``dx = conv3x3(dz, W')`` with ``dz = dy * (y > 0)`` under ``relu_out`` and
-``W'[kh, kw, co, ci] = W[2 - kh, 2 - kw, ci, co]``. Nothing else has a
-backward kernel yet: a weight, bias, slope or residual that requires grad,
-or a data gradient through PReLU or stride 2, raises.
+residual, when only ``x`` requires grad (the conv -> ReLU layers of the
+frozen VGG19 trunk, through which the perceptual loss is differentiated), is
+itself a launch of kernel A: ``dx = conv3x3(dz, W')`` with ``dz = dy * (y >
+0)`` under ``relu_out`` and ``W'[kh, kw, co, ci] = W[2 - kh, 2 - kw, ci,
+co]``. Every other gradient (x through PReLU or stride 2, W, b, alpha, the
+residual: GridNet's training) is the library's VJP of the same function,
+recomputed from the saved inputs as the JAX package's ``custom_vjp``s
+recompute the XLA conv (``ops/pallas/conv_packed.py:_pc_bwd``,
+``_pcr_bwd``): ``conv3x3_vjp`` through ``aten.convolution_backward`` (cuDNN
+on the card) in the activation dtype on the channels_last views of the
+NHWC tensors, the PReLU's derivative elementwise, the bias and slope
+gradients summed in f32. It launches no kernel of the port.
 """
 
 from __future__ import annotations
@@ -177,13 +183,6 @@ def packed_weights(w: torch.Tensor, transposed: bool = False
     return packed
 
 
-def _no_backward(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"kernel A has no {what} kernel yet: it differentiates only the "
-        f"stride-1 conv without PReLU and residual with respect to its "
-        f"input, with frozen weights")
-
-
 def prelu_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   alpha: Optional[torch.Tensor] = None,
                   residual: Optional[torch.Tensor] = None,
@@ -198,21 +197,20 @@ def prelu_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
     A CPU tensor runs the plain version; a CUDA tensor (bf16) launches the
     kernel, and anything the kernel does not take raises. With autograd on,
-    an ``x`` that requires grad gets its gradient from a second launch of
-    the kernel (see the module's docstring); any other gradient raises
-    ``NotImplementedError`` on either device."""
+    an argument that requires grad gets its gradient from a second launch
+    of the kernel (only x, stride 1, no PReLU, no residual) or else from
+    the library's VJP (see the module's docstring)."""
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
     if torch.is_grad_enabled():
-        if any(t is not None and t.requires_grad for t in (w, b, alpha)):
-            raise _no_backward("weight-gradient")
-        if residual is not None and residual.requires_grad:
-            raise _no_backward("residual-gradient")
-        if x.requires_grad:
-            if alpha is not None or residual is not None or stride != 1:
-                raise _no_backward("PReLU, residual or stride-2 "
-                                   "data-gradient")
+        needs = [t is not None and t.requires_grad
+                 for t in (x, w, b, alpha, residual)]
+        if needs == [True, False, False, False, False] and stride == 1 \
+                and alpha is None and residual is None:
             return _Conv3x3DataGrad.apply(x, w, b, relu_out)
+        if any(needs):
+            return _PreluConv3x3.apply(x, w, b, alpha, residual, stride,
+                                       relu_out)
     return _forward(x, w, b, alpha, residual, stride, relu_out)
 
 
@@ -276,6 +274,93 @@ class _Conv3x3DataGrad(torch.autograd.Function):
         dx = _forward(dz.contiguous(), w, zero, None, None, 1, False,
                       transposed=True)
         return dx, None, None, None
+
+
+# ---- the library's VJP (every gradient but _Conv3x3DataGrad's) -------------
+
+def nchw_view(t: torch.Tensor) -> torch.Tensor:
+    """An NHWC tensor as the NCHW view the library reads as channels_last
+    (no copy)."""
+    return t.permute(0, 3, 1, 2)
+
+
+def conv3x3_vjp(xa: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                stride: int, need_x: bool = True, need_w: bool = True):
+    """(dxa, dw) of y = conv3x3(xa, w), zero padding 1, no bias: NHWC
+    activations, HWIO kernel, computed by ``aten.convolution_backward`` in
+    xa's dtype (cuDNN on the card; it knows the stride-2 conv's output
+    padding from xa's shape). An entry not asked for is None."""
+    dxa, dw, _ = torch.ops.aten.convolution_backward(
+        nchw_view(dy), nchw_view(xa), w.permute(3, 2, 0, 1), None,
+        [stride, stride], [1, 1], [1, 1], False, [0, 0], 1,
+        [need_x, need_w, False])
+    return (None if dxa is None else dxa.permute(0, 2, 3, 1),
+            None if dw is None else dw.permute(2, 3, 1, 0))
+
+
+def prelu_vjp(x: torch.Tensor, alpha: torch.Tensor, dxa: torch.Tensor,
+              need_x: bool = True, need_alpha: bool = True):
+    """(dx, dalpha) of xa = prelu(x, alpha) with the slope rounded to x's
+    dtype (``prelu_plain``), the kernels' and the JAX package's convention
+    at x == 0 (the identity's side: dx = dxa there, where the library's
+    PReLU backward takes the slope's). dx in x's dtype; dalpha, the sum of
+    min(x, 0) * dxa over the whole tensor, accumulated in f32 and shaped
+    like alpha. An entry not asked for is None."""
+    dx = da = None
+    if need_x:
+        dx = torch.where(x < 0, dxa * alpha.reshape(()).to(x.dtype), dxa)
+    if need_alpha:
+        da = (x.clamp(max=0) * dxa).sum(dtype=torch.float32)
+        da = da.reshape(alpha.shape)
+    return dx, da
+
+
+def bias_vjp(dy: torch.Tensor) -> torch.Tensor:
+    """db of y = ... + b: dy summed over N, H, W in f32."""
+    return dy.sum(dim=(0, 1, 2), dtype=torch.float32)
+
+
+def prelu_in_dtype(x: torch.Tensor, alpha: Optional[torch.Tensor]):
+    """prelu(x, alpha) in x's dtype, the slope rounded to it (x itself when
+    alpha is None), for the backward's recomputation: one library
+    kernel."""
+    if alpha is None:
+        return x
+    return F.prelu(x, alpha.reshape(1).to(x.dtype))
+
+
+class _PreluConv3x3(torch.autograd.Function):
+    """Kernel A with every gradient: the forward is one launch (the plain
+    version on the CPU); the backward recomputes prelu(x) from the saved x
+    and takes the library's VJP (``conv3x3_vjp``, ``prelu_vjp``,
+    ``bias_vjp``), launching nothing of the port."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, alpha, residual, stride, relu_out):
+        y = _forward(x, w, b, alpha, residual, stride, relu_out)
+        ctx.stride, ctx.relu_out = stride, relu_out
+        ctx.save_for_backward(x, w, alpha, y if relu_out else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, alpha, y = ctx.saved_tensors
+        nx, nw, nb, na, nr = ctx.needs_input_grad[:5]
+        if ctx.relu_out:
+            dy = dy * (y > 0)
+        dx = dw = db = da = dr = None
+        if nx or nw or na:
+            xa = prelu_in_dtype(x, alpha)
+            dxa, dw = conv3x3_vjp(xa, w, dy, ctx.stride, nx or na, nw)
+            if alpha is None:
+                dx = dxa
+            elif nx or na:
+                dx, da = prelu_vjp(x, alpha, dxa, nx, na)
+        if nb:
+            db = bias_vjp(dy)
+        if nr:
+            dr = dy
+        return dx, dw, db, da, dr, None, None
 
 
 prelu_conv3x3.launches = 0

@@ -10,6 +10,16 @@ Both convs run kernel A's tensor-core inner product; a block computes a
 14 x 14 output tile from a 16 x 16 intermediate that lives in shared memory
 (1.31x of conv0's work is recomputed on the halo). ``lateral_plan`` holds the
 launch geometry in Python, where a CPU test can reach it.
+
+Gradients: with autograd on and any argument requiring grad, the call is
+``_FusedLateral``: the same launch forward, and as backward the library's
+VJP of the same function, recomputed from the saved x as the JAX package's
+``ops/pallas/conv_packed.py:_fl_bwd`` recomputes ``_lateral_ref_xla``:
+conv0 again through the library, its output rounded to x's dtype before
+PReLU1 as the kernel rounds it, then kernel A's ``conv3x3_vjp``,
+``prelu_vjp`` and ``bias_vjp`` for both convs (cuDNN in the activation dtype
+on the card, slope and bias gradients summed in f32). It launches no kernel
+of the port.
 """
 
 from __future__ import annotations
@@ -23,8 +33,9 @@ from ._build import library
 from ._checks import (check_cuda, data_ptr, raise_on_error, sm_count,
                       stream_ptr)
 from . import conv3x3 as _conv
-from .conv3x3 import (CHUNK, PIX_BYTES, SMEM_LIMIT, conv3x3_plain_f32,
-                      packed_weights, prelu_plain)
+from .conv3x3 import (CHUNK, PIX_BYTES, SMEM_LIMIT, bias_vjp,
+                      conv3x3_plain_f32, conv3x3_vjp, nchw_view,
+                      packed_weights, prelu_in_dtype, prelu_plain, prelu_vjp)
 
 # The kernel's fixed geometry (csrc/lateral.cu).
 TILE = 14                   # output pixels of a block, square
@@ -82,14 +93,18 @@ def fused_lateral(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     a0, a1 one-element f32 tensors; residual like x or None.
 
     A CPU tensor runs the plain version; a CUDA tensor (bf16) launches the
-    kernel, and anything the kernel does not take raises, as does an
-    argument that requires grad while autograd is on."""
+    kernel, and anything the kernel does not take raises. With autograd on,
+    an argument that requires grad gets its gradient from the library's VJP
+    (see the module's docstring)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, w0, b0, a0, w1, b1, a1, residual)):
-        raise NotImplementedError(
-            "kernel B has no weight-gradient or data-gradient kernel yet: "
-            "it runs forward only")
+        return _FusedLateral.apply(x, w0, b0, a0, w1, b1, a1, residual)
+    return _forward(x, w0, b0, a0, w1, b1, a1, residual)
+
+
+def _forward(x, w0, b0, a0, w1, b1, a1, residual) -> torch.Tensor:
+    """The plain version for a CPU tensor, one launch for a CUDA tensor."""
     if x.device.type == "cpu":
         return fused_lateral_plain(x, w0, b0, a0, w1, b1, a1, residual)
     n, h, wd, c = x.shape
@@ -120,6 +135,50 @@ def fused_lateral(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     raise_on_error(err, "fused_lateral")
     fused_lateral.launches += 1
     return out
+
+
+def _conv0(x, w0, b0, a0):
+    """(prelu0(x), the intermediate conv0(prelu0(x)) + b0 in x's dtype),
+    through the library, for the backward. The conv's output is rounded
+    to x's dtype before the f32 bias is added (and the sum rounded), where
+    the kernel rounds once: an intermediate within rounding of zero can
+    take the other side of PReLU1 here."""
+    xa0 = prelu_in_dtype(x, a0)
+    y0 = torch.nn.functional.conv2d(nchw_view(xa0), w0.permute(3, 2, 0, 1),
+                                    padding=1).permute(0, 2, 3, 1)
+    return xa0, y0.add_(b0)
+
+
+class _FusedLateral(torch.autograd.Function):
+    """Kernel B with every gradient: the forward is one launch (the plain
+    version on the CPU); the backward recomputes the intermediate from the
+    saved x through the library and takes the library's VJP of both convs,
+    launching nothing of the port."""
+
+    @staticmethod
+    def forward(ctx, x, w0, b0, a0, w1, b1, a1, residual):
+        ctx.save_for_backward(x, w0, b0, a0, w1, a1)
+        return _forward(x, w0, b0, a0, w1, b1, a1, residual)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w0, b0, a0, w1, a1 = ctx.saved_tensors
+        nx, nw0, nb0, na0, nw1, nb1, na1, nr = ctx.needs_input_grad
+        xa0, y0 = _conv0(x, w0, b0, a0)
+        xa1 = prelu_in_dtype(y0, a1)
+        db1 = bias_vjp(dy) if nb1 else None
+        dr = dy if nr else None
+        front = nx or nw0 or nb0 or na0
+        dxa1, dw1 = conv3x3_vjp(xa1, w1, dy, 1, front or na1, nw1)
+        dy0 = da1 = dx = dw0 = db0 = da0 = None
+        if front or na1:
+            dy0, da1 = prelu_vjp(y0, a1, dxa1, front, na1)
+        if front:
+            db0 = bias_vjp(dy0) if nb0 else None
+            dxa0, dw0 = conv3x3_vjp(xa0, w0, dy0, 1, nx or na0, nw0)
+            if nx or na0:
+                dx, da0 = prelu_vjp(x, a0, dxa0, nx, na0)
+        return dx, dw0, db0, da0, dw1, db1, da1, dr
 
 
 fused_lateral.launches = 0

@@ -14,7 +14,10 @@ module, ``GanTrainState.disc_stats``) move in the order fake forward, real
 forward, G-side forward; the WGAN-GP interpolate forward does not move them.
 On the card every InstanceNorm of both nets is a launch of the InstanceNorm
 kernels, forward and backward, and the penalty's second derivative runs
-through the backward kernel's own closed-form backward.
+through the backward kernel's own closed-form backward. A GridNet or
+CoordGridNet generator runs kernels A and B once a step, in its one
+forward (31 and 15 launches), with the library's VJP as their backward
+(``train/steps.py``).
 """
 
 from __future__ import annotations
@@ -24,14 +27,14 @@ from typing import Optional
 
 import torch
 
-from ..device import require_bf16, resolve_device
+from ..device import resolve_device
 from ..losses.ce import cross_entropy_loss
 from ..losses.gan import gan_loss, gradient_penalty
 from ..losses.pixel import l1_loss
 from .assemble import normalize_image, normalize_model_output
 from .state import TrainState
-from .steps import (_frozen_nets, _maybe_flip, _to_device, decode_batch,
-                    flip_coin, prepare_inputs, refuse_kernel_conv_training)
+from .steps import (_frozen_nets, _maybe_flip, _to_device, check_bf16_nets,
+                    decode_batch, flip_coin, prepare_inputs)
 
 
 @dataclass
@@ -75,13 +78,11 @@ def make_gan_train_step(gen: torch.nn.Module, disc: torch.nn.Module,
     ``disc_batch_stats=True`` for a BatchNorm discriminator. ``generator``
     draws the flip's coin (on the CPU), ``gp_generator`` the penalty's mixing
     weights (on ``device``)."""
-    refuse_kernel_conv_training(gen, "GAN train step")
     if flip_mode not in ("batch", "per_example", "none"):
         raise ValueError(f"unknown flip_mode {flip_mode!r}")
     dev = resolve_device(device)
     nets = _frozen_nets(hned, combined_loss)
-    if not plain:
-        require_bf16(dev, nets)
+    check_bf16_nets(dev, gen, nets, plain)
     gen.to(dev)
     disc.to(dev)
     for net in nets.values():

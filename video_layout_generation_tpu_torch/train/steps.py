@@ -11,9 +11,14 @@ every InstanceNorm of a pix2pix generator a launch of the InstanceNorm
 kernels, forward and backward; the gradient of the VGG19 term runs back
 through kernel A.
 
-The train step takes the nets whose convs the JAX package leaves to the
-library (``ResnetGenerator``). GridNet's convs are kernels A and B, which
-have no weight-gradient kernel yet, so a GridNet is refused.
+The train step takes a GridNet or CoordGridNet as well as a pix2pix
+generator. A GridNet's forward is 31 launches of kernel A and 15 of kernel
+B; their backward is the library's VJP (cuDNN in bf16 on the card,
+recomputed from the saved inputs, as the JAX package's ``custom_vjp``s take
+``jax.vjp`` of the XLA conv), and a step launches kernel A 93 times in all:
+31 for GridNet, 2 x 13 for HNED, 2 x 12 for the VGG19 forwards and 12 for
+its data gradient. A pix2pix generator's convs are the library's, as in
+the JAX package.
 
 The flip is one coin per step over the whole batch (``flip_mode="batch"``),
 one per example (``"per_example"``) or none.
@@ -127,22 +132,21 @@ def flip_coin(flip_mode: str, n: int, generator, device):
     raise ValueError(f"unknown flip_mode {flip_mode!r}")
 
 
-def refuse_kernel_conv_training(model: torch.nn.Module, what: str) -> None:
-    """Raise for a net whose convs are kernels A and B (GridNet,
-    CoordGridNet): they cannot be trained yet. Called before anything else,
-    on any device."""
-    if any(isinstance(m, Conv3x3) for m in model.modules()):
-        raise NotImplementedError(
-            f"the {what} of {type(model).__name__} needs the "
-            f"weight-gradient kernels of kernel A (prelu_conv3x3) and "
-            f"kernel B (fused_lateral) and their PReLU and stride-2 "
-            f"data-gradient kernels, which the port does not have yet; a "
-            f"ResnetGenerator trains")
-
-
 def _frozen_nets(hned, combined_loss) -> dict:
     return {"HNED": hned,
             "the VGG19 trunk of CombinedLoss": combined_loss.vgg_model}
+
+
+def check_bf16_nets(dev: torch.device, model: torch.nn.Module, frozen: dict,
+                    plain: bool) -> None:
+    """``require_bf16`` over the frozen nets and over ``model`` where its
+    convs are kernels A and B (a GridNet), unless ``plain``: a net built
+    with another dtype raises by name here, not inside its first conv."""
+    if plain:
+        return
+    if any(isinstance(m, Conv3x3) for m in model.modules()):
+        frozen = {type(model).__name__: model, **frozen}
+    require_bf16(dev, frozen)
 
 
 def make_train_step(model: torch.nn.Module, hned: Optional[torch.nn.Module],
@@ -159,14 +163,13 @@ def make_train_step(model: torch.nn.Module, hned: Optional[torch.nn.Module],
     holds the detached loss terms on the device. ``generator`` draws the
     flip's coin. The model always runs with ``train=False`` (no dropout,
     running averages in a BatchNorm generator), as the JAX step applies it.
-    ``plain=True`` runs every kernel's plain PyTorch version."""
-    refuse_kernel_conv_training(model, "train step")
+    ``plain=True`` runs every kernel's plain PyTorch version; a CUDA device
+    otherwise raises for a net not built for bf16, GridNet included."""
     if flip_mode not in ("batch", "per_example", "none"):
         raise ValueError(f"unknown flip_mode {flip_mode!r}")
     dev = resolve_device(device)
     nets = _frozen_nets(hned, combined_loss)
-    if not plain:
-        require_bf16(dev, nets)
+    check_bf16_nets(dev, model, nets, plain)
     model.to(dev)
     for net in nets.values():
         if net is not None:
@@ -214,11 +217,7 @@ def make_eval_step(model: torch.nn.Module, hned: Optional[torch.nn.Module],
     reference)."""
     dev = resolve_device(device)
     nets = _frozen_nets(hned, combined_loss)
-    if any(isinstance(m, Conv3x3) for m in model.modules()):
-        # its convs are kernels A and B, which take bf16 only on the card
-        nets = {type(model).__name__: model, **nets}
-    if not plain:
-        require_bf16(dev, nets)
+    check_bf16_nets(dev, model, nets, plain)
     for net in (model, *nets.values()):
         if net is not None:
             net.to(dev).eval()
