@@ -84,9 +84,25 @@ Phases:
      group and peak memory at b16, and one timed step at b32;
  10. GridNet GAN train: 2 lsgan steps of ``make_gan_train_step`` on the
      flagship GridNet with the full-width PatchGAN, the same checks for
-     both nets.
+     both nets;
+ 11. train CLI: ``main.py`` -> ``Config`` -> ``Trainer`` at the JAX
+     package's default training configuration (CoordGridNet, edges, 256x256,
+     bf16) on the synthetic dataset (64 train, 16 validation samples, b16)
+     with the committed HNED and VGG19 snapshots: (a) a fresh 2-epoch run,
+     every train step's and validation batch's launches asserted, finite
+     losses, checkpoints 001, 002 and latest, the ``predict/`` dump and the
+     log lines; (b) ``--resume latest -e 3``: the restored parameters,
+     moments, step and learning rate equal the checkpoint's bits, the
+     validation before training equals (a)'s last, epoch 3 trains; (c)
+     ``--arch GridNet --ckpt artifacts_store/flagship_096.npz --validate``:
+     every tensor loaded, validation held against the plain versions on the
+     same batch. Printed: the fit loop's train samples/s over epoch 2 with
+     its loader wait and compute time, validation samples/s, a profile of
+     two steps of the loop (idle share, copies to the card from pinned and
+     pageable memory, none of the latter allowed), checkpoint save and
+     restore times.
 
-The launch counters are set to 0 just before each of the phases 3-10 and
+The launch counters are set to 0 just before each of the phases 3-11 and
 read just after it; a kernel of a phase's path that was launched no time
 fails the run. Any failure exits non-zero. The line before the last is the
 ``kernels`` JSON object; the last line is ``{"ok": true, "device": {...}}``. With no CUDA
@@ -2263,6 +2279,346 @@ def run_gridnet_gan(torch, kern, weights, train_flats, seed: int):
                           grad_err=dict(gen=e2e_g, disc=e2e_d))
 
 
+# ---- phase 11: the training CLI ---------------------------------------------
+#
+# ``main.py`` -> ``Config`` -> ``Trainer`` at the JAX package's default
+# training configuration (CoordGridNet, edges, filters 32/64/96, 256x256,
+# bf16) on the synthetic dataset, with the committed HNED and VGG19
+# snapshots: a fresh two-epoch run, a resume to a third epoch, and a warm
+# start of the flagship GridNet from its npz snapshot, validated.
+
+CLI_TRAIN, CLI_VAL, CLI_EPOCHS = 64, 16, 2
+# part (a): CLI_EPOCHS epochs of CLI_TRAIN / BATCH train steps and
+# CLI_VAL / BATCH validation batches
+LAUNCHES_PER_CLI_RUN = {
+    k: CLI_EPOCHS * (CLI_TRAIN // BATCH * LAUNCHES_PER_GRIDNET_TRAIN_STEP[k]
+                     + CLI_VAL // BATCH * LAUNCHES_PER_EVAL_STEP[k])
+    for k in NO_LAUNCHES}
+HNED_NPZ = os.path.join(os.path.dirname(FLAGSHIP), "hned_synth.npz")
+VGG_NPZ = os.path.join(os.path.dirname(FLAGSHIP), "vgg_synth.npz")
+MEMCPY_PINNED = "Memcpy HtoD (Pinned -> Device)"
+MEMCPY_PAGEABLE = "Memcpy HtoD (Pageable -> Device)"
+
+
+def cli_argv(path: str, *extra) -> list:
+    return ["--dataset", "synthetic", "--synthetic_train_size",
+            str(CLI_TRAIN), "--synthetic_val_size", str(CLI_VAL), "-bs",
+            str(BATCH), "--image_size", *map(str, HW), "--filters_level",
+            *map(str, FILTERS), "--hed_weights", HNED_NPZ, "--vgg_weights",
+            VGG_NPZ, "-p", path, "--device", DEVICE, *extra]
+
+
+def watch_steps(kern, trainer, calls: dict):
+    """Wrap the trainer's train and eval steps: each call's launches must
+    be those of one GridNet train step and one eval step."""
+    def counted(name, fn, expected):
+        def call(*args):
+            before = kern.launch_counts()
+            out = fn(*args)
+            after = kern.launch_counts()
+            diff = {k: after[k] - before[k] for k in after}
+            check(diff == expected, f"train CLI, {name} {calls[name] + 1}: "
+                  f"launches {diff}, expected {expected}")
+            calls[name] += 1
+            return out
+        return call
+
+    calls.setdefault("train step", 0)
+    calls.setdefault("validation batch", 0)
+    trainer._train_step = counted("train step", trainer._train_step,
+                                  LAUNCHES_PER_GRIDNET_TRAIN_STEP)
+    trainer._eval_step = counted("validation batch", trainer._eval_step,
+                                 LAUNCHES_PER_EVAL_STEP)
+
+
+def check_restored(torch, trainer, saved: dict, label: str):
+    """The trainer's parameters, moments, step and learning rate equal the
+    checkpoint's, bit for bit."""
+    def same(a, b, what):
+        check(set(a) == set(b), f"{label}: {what} names differ")
+        for k in a:
+            check(torch.equal(a[k].detach().cpu(), b[k]),
+                  f"{label}: {what} {k} differs from the checkpoint")
+
+    same(trainer.model.state_dict(), saved["params"], "parameter")
+    st = trainer.model_state
+    for key in ("mu", "nu"):
+        same(st.opt_state[key], saved["opt_state"][key], f"moment {key}")
+    check(st.opt_state["count"] == saved["opt_state"]["count"]
+          and st.opt_state["learning_rate"]
+          == saved["opt_state"]["learning_rate"]
+          and st.step == trainer.global_step == saved["step"],
+          f"{label}: count / learning rate / step differ from the checkpoint")
+
+
+def profile_loop_steps(torch, trainer, epoch: int):
+    """A torch.profiler trace of the third and fourth steps of one more
+    train epoch, the loader between them included: the wall time from the
+    end of the second step to that of the fourth, each edge after a
+    synchronize (the steps inside run as the loop runs them), the device
+    busy time, the idle share, the copies to the card from pinned and from
+    pageable memory, and the loader's wait a step over the epoch. A trace
+    without both steps' launches of A and B is taken again with another
+    epoch."""
+    from torch.profiler import (ProfilerActivity, profile as tprofile,
+                                schedule)
+    step = trainer._train_step
+    for attempt in range(TRACE_TRIES):
+        retry_pause(attempt)
+        marks = []
+
+        def traced(*args):
+            out = step(*args)
+            if len(marks) in (1, 3):       # the window's two edges
+                torch.cuda.synchronize()
+            prof.step()
+            marks.append(time.perf_counter())
+            return out
+
+        trainer._train_step = traced
+        # the card's activity only: tracing the host's ops would slow the
+        # host-bound loop and inflate its wall time
+        with tprofile(activities=[ProfilerActivity.CUDA],
+                      schedule=schedule(wait=1, warmup=1, active=2,
+                                        repeat=1)) as prof:
+            trainer.set_epoch(epoch + attempt)
+            trainer.train()
+        trainer._train_step = step
+        # the schedule's own ``ProfilerStep#`` spans are no device work
+        rows = [ev for ev in prof.key_averages() if on_device(torch, ev)
+                and not ev.key.startswith("ProfilerStep")]
+        a = sum(ev.count for ev in rows if "conv3x3_mma_kernel" in ev.key)
+        b = sum(ev.count for ev in rows
+                if "fused_lateral_mma_kernel" in ev.key)
+        if (a, b) == (2 * LAUNCHES_PER_GRIDNET_TRAIN_STEP["prelu_conv3x3"],
+                      2 * LAUNCHES_PER_GRIDNET_TRAIN_STEP["fused_lateral"]):
+            break
+        print(f"train CLI profile: incomplete trace (A {a}, B {b}), taking "
+              f"it again", flush=True)
+    else:
+        raise SmokeFailure("train CLI profile: no complete trace")
+    wall = marks[3] - marks[1]
+    busy = sum(ev.self_device_time_total for ev in rows) / 1e6
+
+    def copies(key):
+        hit = [ev for ev in rows if ev.key == key]
+        return dict(n=sum(ev.count for ev in hit),
+                    ms=sum(ev.self_device_time_total for ev in hit) / 1e3)
+
+    groups = {}
+    for ev in rows:
+        label = kernel_group(ev.key)
+        groups[label] = groups.get(label, 0.0) + ev.self_device_time_total / 1e3
+    for ev in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"train CLI profile: {ev.self_device_time_total / 1e3:9.2f} ms "
+              f"{ev.count:6d}x {ev.key[:90]}", flush=True)
+    stats = trainer.epoch_stats
+    return dict(wall_ms=wall * 1e3, busy_ms=busy * 1e3,
+                idle=1 - busy / wall, pinned=copies(MEMCPY_PINNED),
+                pageable=copies(MEMCPY_PAGEABLE), groups=groups,
+                loader_wait_ms=stats["load_s"] / stats["steps"] * 1e3)
+
+
+def run_train_cli(torch, kern, seed: int):
+    """Parts (a) fresh run, (b) resume and (c) warm start of the CLI."""
+    import shutil
+    import tempfile
+    from video_layout_generation_tpu_torch import main as cli
+    from video_layout_generation_tpu_torch.config import config_from_args
+    from video_layout_generation_tpu_torch.io.checkpoint import CKPT_FILE
+    from video_layout_generation_tpu_torch.train.steps import make_eval_step
+    from video_layout_generation_tpu_torch.train.trainer import validate
+
+    root = tempfile.mkdtemp(prefix="vlg_train_cli_")
+    try:
+        path = os.path.join(root, "exp")
+        steps_per_epoch = CLI_TRAIN // BATCH
+        # -- (a) a fresh run: main -> Config -> Trainer.fit ----------------
+        trainer = cli.build_trainer(config_from_args(
+            cli_argv(path, "-e", str(CLI_EPOCHS), "--seed", str(1024 + seed))))
+        calls = {}
+        watch_steps(kern, trainer, calls)
+        kern.reset_launch_counts()
+        t0 = time.perf_counter()
+        fit_a = cli.run_trainer(trainer)
+        fit_s = time.perf_counter() - t0
+        launches = kern.launch_counts()
+        epoch2 = dict(trainer.epoch_stats)
+        n_steps = CLI_EPOCHS * steps_per_epoch
+        n_val = CLI_EPOCHS * (CLI_VAL // BATCH)
+        # with tensorboardX installed the loop also logs image grids: one
+        # more eval step on each epoch's first step
+        n_val += CLI_EPOCHS if trainer.writer.active else 0
+        check(calls == {"train step": n_steps, "validation batch": n_val},
+              f"train CLI: calls {calls}, expected {n_steps} train steps "
+              f"and {n_val} eval steps")
+        want = {k: n_steps * LAUNCHES_PER_GRIDNET_TRAIN_STEP[k]
+                + n_val * LAUNCHES_PER_EVAL_STEP[k] for k in NO_LAUNCHES}
+        check(launches == want, f"train CLI: launches {launches}, expected "
+              f"{want}")
+        check(trainer.global_step == n_steps and trainer.epoch == CLI_EPOCHS,
+              f"train CLI: step {trainer.global_step}, epoch {trainer.epoch}")
+        check(np.isfinite(fit_a["loss"]) and 0 <= fit_a["miou"] <= 1,
+              f"train CLI: validation {fit_a}")
+        log = open(os.path.join(path, "experiment.log")).read()
+        losses = [float(v) for v in re.findall(r"loss \[([-0-9.naif]+)\]",
+                                                log)]
+        check(len(losses) >= CLI_EPOCHS * 2 and all(np.isfinite(losses)),
+              f"train CLI: logged losses {losses}")
+        for line in ("Start of experiment", f"Device: {DEVICE}", "mIoU",
+                     f"Epoch [{CLI_EPOCHS}/{CLI_EPOCHS}][1/{steps_per_epoch}]",
+                     "samples/s", "Saving checkpoint"):
+            check(line in log, f"train CLI: no '{line}' in experiment.log")
+        ck = os.path.join(path, "checkpoint")
+        for tag in ("001", "002", "latest"):
+            check(os.path.isfile(os.path.join(ck, tag, CKPT_FILE)),
+                  f"train CLI: no checkpoint {tag}")
+        dumps = [f for f in os.listdir(os.path.join(path, "predict"))
+                 if f.endswith("_stack.npy")]
+        # one dump a validation, named by the second (two validations in
+        # one second share a name, as in the JAX package)
+        check(1 <= len(dumps) <= CLI_EPOCHS,
+              f"train CLI: predict/ holds {dumps}")
+        stack = np.load(os.path.join(path, "predict", dumps[0]),
+                        mmap_mode="r")
+        check(stack.shape == (BATCH,) + HW + (16,),
+              f"train CLI: dumped stack {stack.shape}")
+        sps = epoch2["samples"] / epoch2["wall_s"]
+        trainer.predict_dir = None          # time validation without its dump
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.validate()
+        val_sps = CLI_VAL / (time.perf_counter() - t0)
+        print(f"train CLI (a): {CLI_EPOCHS} epochs of {steps_per_epoch} b"
+              f"{BATCH} steps and {CLI_VAL // BATCH} validation batch in "
+              f"{fit_s:.2f} s; launches per train step "
+              f"{LAUNCHES_PER_GRIDNET_TRAIN_STEP}, per validation batch "
+              f"{LAUNCHES_PER_EVAL_STEP}, total {launches}; validation "
+              f"{json.dumps({k: fit_a[k] for k in ('loss', 'miou', 'pixel_acc')})}"
+              f"; logged losses {losses}", flush=True)
+        del trainer
+
+        # -- (b) resume to a third epoch ------------------------------------
+        saved = torch.load(os.path.join(ck, "latest", CKPT_FILE),
+                           map_location="cpu", weights_only=True)
+        trainer = cli.build_trainer(config_from_args(cli_argv(
+            path, "--resume", "latest", "-e", str(CLI_EPOCHS + 1),
+            "--seed", str(1024 + seed))))
+        check(trainer.epoch == CLI_EPOCHS and trainer.global_step == n_steps,
+              f"resume: epoch {trainer.epoch}, step {trainer.global_step}")
+        check_restored(torch, trainer, saved, "resume")
+        val_b = trainer.validate()
+        for k in ("loss", "miou", "pixel_acc"):
+            check(val_b[k] == fit_a[k], f"resume: validation {k} "
+                  f"{val_b[k]!r} != {fit_a[k]!r} before the resume")
+        calls_b = {}
+        watch_steps(kern, trainer, calls_b)
+        fit_b = cli.run_trainer(trainer)
+        check(trainer.epoch == CLI_EPOCHS + 1 and trainer.global_step
+              == n_steps + steps_per_epoch and calls_b["train step"]
+              == steps_per_epoch and np.isfinite(fit_b["loss"]),
+              f"resume: epoch {trainer.epoch}, step {trainer.global_step}, "
+              f"calls {calls_b}, validation {fit_b}")
+        check(os.path.isfile(os.path.join(ck, "003", CKPT_FILE)),
+              "resume: no checkpoint 003")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.save_checkpoint()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        trainer.load_checkpoint("latest")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        prof = profile_loop_steps(torch, trainer, CLI_EPOCHS + 1)
+        print(f"train CLI (b): resumed at epoch {CLI_EPOCHS} step {n_steps}"
+              f", parameters, moments, count, learning rate and step equal "
+              f"to the checkpoint's bits; validation before training equal "
+              f"to (a)'s last ({val_b['loss']!r}); epoch {CLI_EPOCHS + 1} "
+              f"validation loss {fit_b['loss']:.4f}; checkpoint save "
+              f"{save_s:.3f} s, restore {restore_s:.3f} s", flush=True)
+        check(prof["pageable"]["n"] == 0, f"train CLI: {prof['pageable']} "
+              f"copies to the card from pageable memory inside the steps")
+        check(prof["pinned"]["n"] > 0, "train CLI: no copy from pinned "
+              "memory in the profiled steps")
+        del trainer
+
+        # -- (c) warm start of the flagship GridNet, validated --------------
+        trainer = cli.build_trainer(config_from_args(cli_argv(
+            os.path.join(root, "warm"), "--arch", "GridNet", "--ckpt",
+            FLAGSHIP, "--validate")))
+        rep = trainer.warm_start_report["generator"]
+        check(len(rep["loaded"]) == 182 and not (
+            rep["missing"] or rep["unexpected"] or rep["shape_mismatch"]),
+            f"warm start: {({k: len(v) for k, v in rep.items()})}")
+        calls_c = {}
+        watch_steps(kern, trainer, calls_c)
+        val_c = cli.run_trainer(trainer)
+        check(calls_c["validation batch"] == max(CLI_VAL // BATCH, 1),
+              f"warm start: calls {calls_c}")
+        batch = next(iter(trainer.val_loader))
+        plain = make_eval_step(trainer.model, trainer.hned,
+                               trainer.combined.eval_variant(),
+                               n_classes=N_CLASSES, plain=True, device=DEVICE)
+        val_p = validate(plain, [batch], N_CLASSES)
+        metrics, ids, img = trainer._eval_step(batch)
+        ref_metrics, ref_ids, ref_img = plain(batch)
+        terms = {}
+        for k in TRAIN_TERMS:
+            a, b = float(metrics[k]), float(ref_metrics[k])
+            terms[k] = dict(kernels=a, plain=b, rel_err=abs(a - b) / abs(b))
+        agree = float((ids == ref_ids).float().mean())
+        diff = (img - ref_img).abs()
+        top = ref_img.abs().max()
+        share = float((diff <= IMG_MAX_TOL * top).float().mean())
+        mean_err = float(diff.mean() / ref_img.abs().mean())
+        print(f"train CLI (c): warm start {len(rep['loaded'])} of 182 loaded;"
+              f" validation through the kernels "
+              f"{json.dumps({k: val_c[k] for k in ('loss', 'miou', 'pixel_acc')})}"
+              f", plain {json.dumps({k: val_p[k] for k in ('loss', 'miou', 'pixel_acc')})}"
+              f"; terms {json.dumps(terms)}; layout agreement {agree:.5f}; "
+              f"image mean error {mean_err:.5f}, share within "
+              f"{IMG_MAX_TOL:.0e} {share:.6f}", flush=True)
+        for k, v in terms.items():
+            check(v["rel_err"] <= LOSS_TERM_RTOL,
+                  f"warm start: {k} {v['kernels']} vs plain {v['plain']}")
+        check(agree >= 0.99, f"warm start: layout agreement {agree:.4f}")
+        check(mean_err <= EDGE_IMG_MEAN_TOL and share >= EDGE_IMG_SHARE,
+              f"warm start: image mean error {mean_err:.3e}, share {share}")
+        check(abs(val_c["pixel_acc"] - val_p["pixel_acc"]) <= 0.01,
+              f"warm start: pixel accuracy {val_c['pixel_acc']} vs plain "
+              f"{val_p['pixel_acc']}")
+        del trainer, plain
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    # the profiler's kernel tracing slows the host-bound loop, so the idle
+    # share of the unprofiled epoch is estimated from the busy time a step
+    # in the trace over the epoch's wall time a step
+    idle_loop = 1 - prof["busy_ms"] / 2 / (epoch2["wall_s"] * 1e3
+                                           / epoch2["steps"])
+    stats = dict(samples_per_s=sps, epoch_wall_s=epoch2["wall_s"],
+                 idle_epoch=idle_loop,
+                 load_s=epoch2["load_s"], comp_s=epoch2["comp_s"],
+                 val_samples_per_s=val_sps, save_s=save_s,
+                 restore_s=restore_s, profile=prof,
+                 warm_start=dict(terms=terms, agreement=agree))
+    print(f"train CLI timing, card {card_line()}: fit loop train samples/s "
+          f"at b{BATCH} over epoch {CLI_EPOCHS} {sps:.1f} (wall "
+          f"{epoch2['wall_s']:.3f} s, loader wait {epoch2['load_s']:.3f} s, "
+          f"compute {epoch2['comp_s']:.3f} s); validation samples/s "
+          f"{val_sps:.1f}; idle share of epoch {CLI_EPOCHS} (busy a step "
+          f"from the trace over its wall a step) {idle_loop:.3f}; two "
+          f"profiled loop steps: wall "
+          f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms, "
+          f"idle share {prof['idle']:.3f}, copies to the card from pinned "
+          f"memory {json.dumps(prof['pinned'])}, from pageable memory "
+          f"{json.dumps(prof['pageable'])}, device ms by group "
+          f"{json.dumps(prof['groups'])}, loader wait a step "
+          f"{prof['loader_wait_ms']:.2f} ms; checkpoint save {save_s:.3f} s, "
+          f"restore {restore_s:.3f} s", flush=True)
+    return launches, stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2343,6 +2699,7 @@ def main(argv=None) -> int:
         torch, kern, weights, train_flats, args.seed)
     by_path["GridNet GAN train"], grid_gan_stats = run_gridnet_gan(
         torch, kern, weights, train_flats, args.seed)
+    by_path["train CLI"], cli_stats = run_train_cli(torch, kern, args.seed)
     expected = {"no-edge rollout": LAUNCHES_PER_ROLLOUT,
                 "validation": LAUNCHES_PER_EVAL_STEP,
                 "edge rollout": LAUNCHES_PER_EDGE_ROLLOUT,
@@ -2350,7 +2707,8 @@ def main(argv=None) -> int:
                 "GAN train": LAUNCHES_PER_GAN_STEP,
                 "ResnetGenerator validation": LAUNCHES_PER_RESNET_EVAL_STEP,
                 "GridNet train": LAUNCHES_PER_GRIDNET_TRAIN_STEP,
-                "GridNet GAN train": LAUNCHES_PER_GRIDNET_GAN_STEP}
+                "GridNet GAN train": LAUNCHES_PER_GRIDNET_GAN_STEP,
+                "train CLI": LAUNCHES_PER_CLI_RUN}
     for path, counts in by_path.items():
         for name, per_call in expected[path].items():
             check(per_call == 0 or counts[name] > 0,
@@ -2401,6 +2759,7 @@ def main(argv=None) -> int:
         **{arch: {k: v for k, v in st.items() if k in keep}
            for arch, st in grid_stats.items()},
         GridNet_GAN={k: v for k, v in grid_gan_stats.items() if k in keep},
+        train_CLI={k: v for k, v in cli_stats.items() if k != "warm_start"},
         device_ms_by_group={arch: st["groups"]
                             for arch, st in grid_stats.items()})),
         flush=True)

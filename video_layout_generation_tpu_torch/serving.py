@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .device import require_bf16, resolve_device
+from .io.checkpoint import CheckpointManager
 from .io.weights import params_from_flax
 from .models import get_model_cls
 from .train.assemble import denormalize_image, normalize_image
@@ -86,10 +87,13 @@ class LayoutPredictor:
     @classmethod
     def from_checkpoint(cls, path: str, arch: str = "GridNet",
                         **kw) -> "LayoutPredictor":
-        raise NotImplementedError(
-            "orbax checkpoints come with the checkpoint port; load a "
-            "tools/persist_artifacts.py snapshot with numpy and pass it as "
-            "params")
+        """A predictor from a checkpoint of the port's ``Trainer`` (a tag
+        directory such as ``<exp>/checkpoint/latest``) or a flat npz
+        snapshot, with the architecture saved in it."""
+        tree = CheckpointManager.restore_path(path)
+        if tree.get("arch") not in (arch, None):
+            arch = tree["arch"]
+        return cls(arch, tree["params"], **kw)
 
     @torch.inference_mode()
     def _serve(self, x: np.ndarray, n: int) -> torch.Tensor:
