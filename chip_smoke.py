@@ -100,9 +100,27 @@ Phases:
      its loader wait and compute time, validation samples/s, a profile of
      two steps of the loop (idle share, copies to the card from pinned and
      pageable memory, none of the latter allowed), checkpoint save and
-     restore times.
+     restore times;
+ 12. rollout-fidelity training: (a) the JAX package's finetune recipe
+     (``--arch GridNet --ckpt artifacts_store/flagship_096.npz
+     --multistep_k 4 --multistep_feedback_noise 0.1 --lr 5e-5``, per-step
+     recomputation on) through ``main.py`` on phase 11's data as 6-frame
+     windows, one epoch: every step's launches asserted (553 A, 120 B;
+     ``launches_per_rollout_step``), finite losses with 4 per-step losses;
+     (b) step 1 of that K=4 step (flagship, a coin that flips, fixed
+     feedback noise) through the kernels against the plain versions, loss
+     terms and per-step losses within 2e-2, every gradient within 0.5 in
+     L2, and through the kernels with and without recomputation: equal
+     losses, gradients within 1e-2 in L2; (c) scheduled sampling (p 0.5)
+     on the CoordGridNet, 137 A and 30 B a step; (d) the recipe with
+     ``--device_data``: the first batch rendered on the card against the
+     host dataset's windows (under 1e-4 of layout pixels differ, colours
+     within the host's rounding), one copy to the card in the epoch (its
+     indices, from pinned memory) and finite losses. Printed: train
+     samples/s of each, busy ms a step, idle share and peak memory of the
+     recipe.
 
-The launch counters are set to 0 just before each of the phases 3-11 and
+The launch counters are set to 0 just before each of the phases 3-12 and
 read just after it; a kernel of a phase's path that was launched no time
 fails the run. Any failure exits non-zero. The line before the last is the
 ``kernels`` JSON object; the last line is ``{"ok": true, "device": {...}}``. With no CUDA
@@ -2308,9 +2326,10 @@ def cli_argv(path: str, *extra) -> list:
             VGG_NPZ, "-p", path, "--device", DEVICE, *extra]
 
 
-def watch_steps(kern, trainer, calls: dict):
+def watch_steps(kern, trainer, calls: dict,
+                train_launches=LAUNCHES_PER_GRIDNET_TRAIN_STEP):
     """Wrap the trainer's train and eval steps: each call's launches must
-    be those of one GridNet train step and one eval step."""
+    be those of one train step (``train_launches``) and one eval step."""
     def counted(name, fn, expected):
         def call(*args):
             before = kern.launch_counts()
@@ -2326,7 +2345,7 @@ def watch_steps(kern, trainer, calls: dict):
     calls.setdefault("train step", 0)
     calls.setdefault("validation batch", 0)
     trainer._train_step = counted("train step", trainer._train_step,
-                                  LAUNCHES_PER_GRIDNET_TRAIN_STEP)
+                                  train_launches)
     trainer._eval_step = counted("validation batch", trainer._eval_step,
                                  LAUNCHES_PER_EVAL_STEP)
 
@@ -2619,6 +2638,376 @@ def run_train_cli(torch, kern, seed: int):
     return launches, stats
 
 
+# ---- phase 12: rollout-fidelity training -----------------------------------
+#
+# The JAX package's finetune recipe (README "rollout-fidelity training"):
+# the flagship GridNet from its epoch-96 snapshot trained on K=4 autoregressive
+# steps with feedback noise 0.1 at lr 5e-5, through ``main.py`` at full
+# width, with the phase-11 data (synthetic 4+2-frame windows, 64 train and 16
+# validation samples, b16, bf16); then the same step against the plain
+# versions, scheduled sampling on the default CoordGridNet, and the recipe
+# on windows rendered on the card (``--device_data``).
+
+RECIPE_K = 4
+RECIPE_NOISE = 0.1
+RECIPE_ARGS = ("--arch", "GridNet", "--ckpt", FLAGSHIP, "--multistep_k",
+               str(RECIPE_K), "--multistep_feedback_noise", str(RECIPE_NOISE),
+               "--lr", "5e-5")
+REMAT_GRAD_TOL = 1e-2    # L2, remat against no remat through the kernels
+# the card's rendered windows against the host's: the share of layout pixels
+# that differ (rectangle edges in f32 on the card, f64 on the host), and the
+# colours where the layouts agree, up to the host's rounding to 1/255
+RENDER_MISMATCH = 1e-4
+RENDER_COLOUR_TOL = 0.5 / 255 + 1e-6
+
+
+def launches_per_rollout_step(k: int, remat_steps: bool = True) -> dict:
+    """Launches of one K-step train step with edges (``train/multistep.py``):
+    HNED on the two seed frames and on each fed-back frame but the last
+    (13 (K+1) A); each step's GridNet (31 A + 15 B), VGG19 on its output and
+    target (24 A) and VGG19's data gradient (12 A); with ``remat_steps``
+    each step's forward and losses once more in the backward (31 + 24 A,
+    15 B: the recomputation stops at the last tensor the backward saved,
+    the cross entropy's, after both VGG19 forwards). K=4: 333 A and 60 B
+    without remat, 553 A and 120 B with."""
+    a, b = 13 * (k + 1) + k * (31 + 24 + 12), 15 * k
+    if remat_steps and k > 1:
+        a, b = a + k * (31 + 24), b + 15 * k
+    return dict(NO_LAUNCHES, prelu_conv3x3=a, fused_lateral=b)
+
+
+LAUNCHES_PER_ROLLOUT_STEP = launches_per_rollout_step(RECIPE_K)
+# scheduled sampling: HNED on f0, f1 and the mixed f2 (39 A), GridNet twice
+# (the teacher without grad, 62 A and 30 B), VGG19 forwards and data
+# gradient (36 A)
+LAUNCHES_PER_SCHEDULED_STEP = dict(
+    NO_LAUNCHES, prelu_conv3x3=3 * 13 + 2 * 31 + 2 * 12 + 12,
+    fused_lateral=2 * 15)
+
+
+def watch_rollout_steps(kern, trainer, calls: dict, per_step: dict,
+                        history: list):
+    """Wrap the trainer's train and eval steps (``watch_steps``) with
+    ``per_step`` as a train step's launches, keeping each step's metrics."""
+    watch_steps(kern, trainer, calls, per_step)
+    counted = trainer._train_step
+
+    def step(state, batch):
+        state, metrics = counted(state, batch)
+        history.append(metrics)
+        return state, metrics
+
+    trainer._train_step = step
+
+
+def traced_epoch(torch, trainer, epoch: int, per_step: dict, label: str):
+    """A CUDA-only torch.profiler trace of one train epoch: the copies to
+    the card, device busy ms a step and the epoch's wall time. A trace
+    without every step's launches of A and B is taken again with the next
+    epoch. The device's copy records are not all returned (two pinned
+    copies of 50 MB, one after the other, came back as one record or as
+    none on the H100), so the copies to the card are also counted from
+    the runtime's ``cudaMemcpyAsync`` calls, less the copies on the card
+    and to the host that came back: ``h2d`` (a missing record of those
+    can only raise it)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    steps = len(trainer.train_loader)
+    for attempt in range(TRACE_TRIES):
+        retry_pause(attempt)
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            trainer.set_epoch(epoch + attempt)
+            trainer.train()
+            torch.cuda.synchronize()
+        rows = [ev for ev in prof.key_averages() if on_device(torch, ev)]
+        a = sum(ev.count for ev in rows if "conv3x3_mma_kernel" in ev.key)
+        b = sum(ev.count for ev in rows
+                if "fused_lateral_mma_kernel" in ev.key)
+        if (a, b) == (steps * per_step["prelu_conv3x3"],
+                      steps * per_step["fused_lateral"]):
+            break
+        print(f"{label} profile: incomplete trace (A {a}, B {b}), taking it "
+              f"again", flush=True)
+    else:
+        raise SmokeFailure(f"{label} profile: no complete trace")
+
+    def copies(key):
+        hit = [ev for ev in rows if ev.key == key]
+        return dict(n=sum(ev.count for ev in hit),
+                    ms=sum(ev.self_device_time_total for ev in hit) / 1e3)
+
+    api = sum(ev.count for ev in prof.key_averages()
+              if ev.key == "cudaMemcpyAsync")
+    other = sum(ev.count for ev in rows
+                if ev.key.startswith(("Memcpy DtoD", "Memcpy DtoH")))
+    for ev in rows:
+        if ev.key.startswith("Memcpy"):
+            print(f"{label} profile: {ev.count}x {ev.key}, "
+                  f"{ev.self_device_time_total / 1e3:.3f} ms", flush=True)
+    busy = sum(ev.self_device_time_total for ev in rows) / 1e3
+    return dict(h2d=api - other, memcpy_calls=api,
+                pinned=copies(MEMCPY_PINNED),
+                pageable=copies(MEMCPY_PAGEABLE), busy_ms_step=busy / steps,
+                epoch_wall_s=trainer.epoch_stats["wall_s"])
+
+
+def timed_epoch(torch, trainer, epoch: int) -> dict:
+    """One more train epoch, unprofiled: samples/s, wall and peak GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.set_epoch(epoch)
+    trainer.train()
+    torch.cuda.synchronize()
+    st = trainer.epoch_stats
+    return dict(samples_per_s=st["samples"] / st["wall_s"],
+                wall_s=st["wall_s"], load_s=st["load_s"],
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def rollout_window(torch, n: int, seed: int):
+    """(imgs, segs) of an n-sample K+2-frame synthetic window batch on the
+    card, rendered on the host as the CLI's dataset renders it."""
+    from video_layout_generation_tpu_torch.data.synthetic import \
+        SyntheticTriplets
+    from video_layout_generation_tpu_torch.train.multistep import \
+        decode_window_batch
+    ds = SyntheticTriplets(n, HW, N_CLASSES, seed=seed, emit_uint8=True,
+                           n_frames=RECIPE_K + 2)
+    packed = np.stack([np.concatenate(
+        [s["imgs"], s["segs"][..., None]], -1)
+        for s in (ds[i] for i in range(n))])
+    return decode_window_batch(
+        {"packedseq": torch.from_numpy(packed).to(DEVICE)})
+
+
+def rendered_window_mismatch(torch, trainer) -> dict:
+    """The first batch of epoch 0 that the device loader renders on the
+    card against the host dataset's windows of the same scenes (the
+    dataset the CLI builds without ``--device_data``): the share of layout
+    pixels that differ and the largest colour difference where the
+    layouts agree."""
+    from video_layout_generation_tpu_torch.data import get_dataset
+    from video_layout_generation_tpu_torch.train.multistep import \
+        decode_window_batch
+    loader = trainer.train_loader
+    loader.set_epoch(0)
+    idx = loader.epoch_indices()[0]
+    imgs, segs = decode_window_batch(
+        loader.render(torch.from_numpy(idx).to(DEVICE)))
+    host = get_dataset(trainer.cfg)[0]
+    packed = np.stack([np.concatenate(
+        [s["imgs"], s["segs"][..., None]], -1)
+        for s in (host[int(i)] for i in idx)])
+    h_imgs, h_segs = decode_window_batch(
+        {"packedseq": torch.from_numpy(packed).to(DEVICE)})
+    check(imgs.shape == h_imgs.shape, f"rollout (d): rendered windows "
+          f"{tuple(imgs.shape)}, host {tuple(h_imgs.shape)}")
+    same = segs == h_segs
+    out = dict(layout_mismatch=float((~same).float().mean()),
+               colour_err=float((imgs - h_imgs).abs()[same].max()),
+               pixels=int(same.numel()))
+    check(out["layout_mismatch"] < RENDER_MISMATCH
+          and out["colour_err"] <= RENDER_COLOUR_TOL,
+          f"rollout (d): windows rendered on the card against the host's "
+          f"{out}, limits {RENDER_MISMATCH} and {RENDER_COLOUR_TOL:.3e}")
+    return out
+
+
+def rollout_step_grads(torch, net, loss_fn, imgs, segs, noise, plain):
+    total, metrics = loss_fn(imgs, segs, True, noise, plain)
+    names = [k for k, _ in net.named_parameters()]
+    grads = torch.autograd.grad(total, list(net.parameters()))
+    return ({k: v.detach() for k, v in metrics.items()},
+            dict(zip(names, grads)))
+
+
+def run_rollout_step_agreement(torch, hned, combined, seed: int):
+    """Part (b): step 1 of the K=4 recipe step (flagship weights, a fixed
+    coin that flips, fixed feedback noise) through the kernels against the
+    plain versions, and through the kernels with and without remat."""
+    from video_layout_generation_tpu_torch.train.multistep import (
+        draw_rollout_noise, make_multistep_loss_fn)
+    net = build_gridnet(torch, "GridNet", flagship_flat()).to(DEVICE)
+    imgs, segs = rollout_window(torch, BATCH, seed + 170)
+    noise = draw_rollout_noise(
+        RECIPE_K, BATCH, HW, N_CLASSES, RECIPE_NOISE, 0.0,
+        torch.Generator(device=DEVICE).manual_seed(seed + 171), DEVICE)
+    out = {}
+    for name, remat, plain in (("kernels", True, False),
+                               ("plain", True, True),
+                               ("kernels, no remat", False, False)):
+        loss_fn = make_multistep_loss_fn(net, hned, combined, RECIPE_K,
+                                         remat_steps=remat,
+                                         feedback_noise=RECIPE_NOISE)
+        out[name] = rollout_step_grads(torch, net, loss_fn, imgs, segs,
+                                       noise, plain)
+        torch.cuda.synchronize()
+    (m, g), (pm, pg), (nm, ng) = (out["kernels"], out["plain"],
+                                  out["kernels, no remat"])
+    terms = compare_terms("rollout step 1", m, pm, TRAIN_TERMS)
+    per = m["loss_per_step"].float().cpu().numpy()
+    per_plain = pm["loss_per_step"].float().cpu().numpy()
+    per_err = float(np.max(np.abs(per - per_plain) / np.abs(per_plain)))
+    check(per_err <= LOSS_TERM_RTOL, f"rollout step 1: loss per step "
+          f"{per.tolist()} vs plain {per_plain.tolist()}")
+    e2e = grad_errors(torch, "rollout step 1", slopes_as_one(torch, g),
+                      slopes_as_one(torch, pg), set())
+    check(e2e["l2"] <= GRAD_E2E_TOL, f"rollout step 1: gradient of "
+          f"{e2e['l2_at']} differs from the plain step by {e2e['l2']:.3e} "
+          f"> {GRAD_E2E_TOL} in the L2 norm")
+    for k in TRAIN_TERMS + ("loss_per_step",):
+        check(torch.equal(m[k], nm[k]), f"rollout step 1: {k} with remat "
+              f"{m[k].tolist()} != without {nm[k].tolist()}")
+    remat = grad_errors(torch, "rollout step 1, remat",
+                        slopes_as_one(torch, g), slopes_as_one(torch, ng),
+                        set())
+    check(remat["l2"] <= REMAT_GRAD_TOL, f"rollout step 1: gradient of "
+          f"{remat['l2_at']} with remat differs from without by "
+          f"{remat['l2']:.3e} > {REMAT_GRAD_TOL} in the L2 norm")
+    print(f"rollout (b): step 1 of the K={RECIPE_K} step (flagship, flipped,"
+          f" noise {RECIPE_NOISE}) vs plain: " + json.dumps(terms)
+          + f"; loss per step {per.tolist()}, plain {per_plain.tolist()}, "
+          f"max relative error {per_err:.3e}; gradients end to end (the "
+          f"PReLU slopes as one) " + json.dumps(e2e) + "; remat vs no remat "
+          f"through the kernels: losses equal, gradients "
+          + json.dumps(remat), flush=True)
+    del out, g, pg, ng, net
+    torch.cuda.empty_cache()
+    return dict(terms=terms, per_step_err=per_err, grad_err=e2e,
+                remat_grad_err=remat)
+
+
+def run_rollout_training(torch, kern, seed: int):
+    """Parts (a) to (d) of phase 12; returns the launches of (a) and the
+    numbers of every part."""
+    import shutil
+    import tempfile
+    from video_layout_generation_tpu_torch import main as cli
+    from video_layout_generation_tpu_torch.config import config_from_args
+
+    root = tempfile.mkdtemp(prefix="vlg_rollout_")
+    stats = {}
+    steps = CLI_TRAIN // BATCH
+    try:
+        def build(name, *extra):
+            return cli.build_trainer(config_from_args(cli_argv(
+                os.path.join(root, name), "-e", "1", "--seed",
+                str(1024 + seed), *extra)))
+
+        # -- (a) the recipe through main.py ---------------------------------
+        trainer = build("recipe", *RECIPE_ARGS)
+        calls, history = {}, []
+        watch_rollout_steps(kern, trainer, calls, LAUNCHES_PER_ROLLOUT_STEP,
+                            history)
+        kern.reset_launch_counts()
+        t0 = time.perf_counter()
+        fit_a = cli.run_trainer(trainer)
+        fit_s = time.perf_counter() - t0
+        launches = kern.launch_counts()
+        n_val = CLI_VAL // BATCH + (1 if trainer.writer.active else 0)
+        check(calls == {"train step": steps, "validation batch": n_val},
+              f"rollout (a): calls {calls}")
+        losses_a = [float(m["loss"]) for m in history]
+        per_step = [m["loss_per_step"].float().cpu().tolist()
+                    for m in history]
+        check(all(len(p) == RECIPE_K and np.all(np.isfinite(p))
+                  for p in per_step) and np.all(np.isfinite(losses_a)),
+              f"rollout (a): losses {losses_a}, per step {per_step}")
+        check(trainer.global_step == steps and np.isfinite(fit_a["loss"]),
+              f"rollout (a): step {trainer.global_step}, validation {fit_a}")
+        check(trainer.train_loader.loader.ds.n_frames == RECIPE_K + 2,
+              "rollout (a): the train windows are not K+2 frames")
+        log = open(os.path.join(root, "recipe", "experiment.log")).read()
+        check("loss per rollout step [" in log and "Loading from ckpt" in log,
+              "rollout (a): no per-step losses or warm start in the log")
+        check(len(trainer.warm_start_report["generator"]["loaded"]) == 182,
+              "rollout (a): the flagship did not load whole")
+        prof = profile_call(
+            f"K={RECIPE_K} train step b{BATCH}",
+            lambda: float(trainer._train_step(
+                trainer.state, next(iter(trainer.train_loader)))[1]["loss"]))
+        host = timed_epoch(torch, trainer, 1)
+        # the traced call's host is slowed by the tracing: the unprofiled
+        # epoch's idle share is the traced busy time over its wall a step
+        host["idle_epoch"] = 1 - prof["busy_ms"] / (host["wall_s"] * 1e3
+                                                    / steps)
+        stats["recipe"] = dict(host, fit_s=fit_s, busy_ms=prof["busy_ms"],
+                               wall_ms=prof["wall_ms"], idle=prof["idle"],
+                               groups=prof["groups"], losses=losses_a,
+                               loss_per_step=per_step,
+                               validation={k: fit_a[k] for k in (
+                                   "loss", "miou", "pixel_acc")})
+        print(f"rollout (a): the recipe ({' '.join(RECIPE_ARGS[2:])}) "
+              f"through main.py, {steps} steps of b{BATCH} in {fit_s:.2f} s "
+              f"with validation; launches per train step "
+              f"{LAUNCHES_PER_ROLLOUT_STEP}, total {launches}; losses "
+              f"{losses_a}; loss per rollout step {per_step}; validation "
+              + json.dumps(stats["recipe"]["validation"]) + "; epoch 2 "
+              + json.dumps(host), flush=True)
+
+        # -- (b) step 1 against the plain versions, remat against none ----
+        stats["agreement"] = run_rollout_step_agreement(
+            torch, trainer.hned, trainer.combined, seed)
+        hned_c, combined_c = trainer.hned, trainer.combined
+        del trainer, hned_c, combined_c
+        torch.cuda.empty_cache()
+
+        # -- (c) one scheduled-sampling step on the CoordGridNet ----------
+        trainer = build("scheduled", "--scheduled_sampling", "0.5",
+                        "--synthetic_train_size", str(2 * BATCH))
+        calls_c, hist_c = {}, []
+        watch_rollout_steps(kern, trainer, calls_c,
+                            LAUNCHES_PER_SCHEDULED_STEP, hist_c)
+        trainer.set_epoch(0)
+        trainer.train()
+        check(calls_c["train step"] == 2 and all(
+            np.isfinite(float(m["loss"])) and m["ss_p"] == 0.5
+            for m in hist_c), f"rollout (c): calls {calls_c}")
+        stats["scheduled"] = timed_epoch(torch, trainer, 1)
+        print(f"rollout (c): scheduled sampling p 0.5 on the CoordGridNet, "
+              f"launches per step {LAUNCHES_PER_SCHEDULED_STEP}; losses "
+              f"{[float(m['loss']) for m in hist_c[:2]]}; "
+              + json.dumps(stats["scheduled"]), flush=True)
+        del trainer
+
+        # -- (d) the recipe on windows rendered on the card ---------------
+        trainer = build("device", *RECIPE_ARGS, "--device_data")
+        render = rendered_window_mismatch(torch, trainer)
+        calls_d, hist_d = {}, []
+        watch_rollout_steps(kern, trainer, calls_d,
+                            LAUNCHES_PER_ROLLOUT_STEP, hist_d)
+        dev_prof = traced_epoch(torch, trainer, 0,
+                                LAUNCHES_PER_ROLLOUT_STEP, "rollout (d)")
+        check(dev_prof["h2d"] == 1 and dev_prof["pinned"]["n"] <= 1
+              and dev_prof["pageable"]["n"] == 0,
+              f"rollout (d): copies to the card {dev_prof}, expected the "
+              f"epoch's indices once, from pinned memory")
+        check(all(np.isfinite(float(m["loss"])) for m in hist_d)
+              and len(hist_d) >= steps, f"rollout (d): {len(hist_d)} steps")
+        stats["device_data"] = dict(timed_epoch(torch, trainer, 5),
+                                    render=render, profile=dev_prof)
+        print(f"rollout (d): --device_data: the first batch rendered on the "
+              f"card against the host's windows {json.dumps(render)}; "
+              f"losses {[float(m['loss']) for m in hist_d[:steps]]}; copies "
+              f"to the card in the epoch {json.dumps(dev_prof)}; "
+              + json.dumps({k: v for k, v in stats["device_data"].items()
+                            if k not in ("profile", "render")}), flush=True)
+        del trainer
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rec = stats["recipe"]
+    print(f"rollout timing, card {card_line()}: K={RECIPE_K} recipe train "
+          f"samples/s at b{BATCH} {rec['samples_per_s']:.1f} (host-fed "
+          f"loop, epoch 2), busy {rec['busy_ms']:.1f} ms a step, idle share "
+          f"{rec['idle_epoch']:.3f} over epoch 2 ({rec['idle']:.3f} in the "
+          f"traced step), peak {rec['peak_gib']:.2f} GiB; scheduled "
+          f"sampling {stats['scheduled']['samples_per_s']:.1f}; rendered "
+          f"on the card {stats['device_data']['samples_per_s']:.1f}; device "
+          f"ms by group " + json.dumps(rec["groups"]), flush=True)
+    return launches, stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2700,6 +3089,8 @@ def main(argv=None) -> int:
     by_path["GridNet GAN train"], grid_gan_stats = run_gridnet_gan(
         torch, kern, weights, train_flats, args.seed)
     by_path["train CLI"], cli_stats = run_train_cli(torch, kern, args.seed)
+    by_path["rollout-fidelity training"], rollout_stats = \
+        run_rollout_training(torch, kern, args.seed)
     expected = {"no-edge rollout": LAUNCHES_PER_ROLLOUT,
                 "validation": LAUNCHES_PER_EVAL_STEP,
                 "edge rollout": LAUNCHES_PER_EDGE_ROLLOUT,
@@ -2708,7 +3099,8 @@ def main(argv=None) -> int:
                 "ResnetGenerator validation": LAUNCHES_PER_RESNET_EVAL_STEP,
                 "GridNet train": LAUNCHES_PER_GRIDNET_TRAIN_STEP,
                 "GridNet GAN train": LAUNCHES_PER_GRIDNET_GAN_STEP,
-                "train CLI": LAUNCHES_PER_CLI_RUN}
+                "train CLI": LAUNCHES_PER_CLI_RUN,
+                "rollout-fidelity training": LAUNCHES_PER_ROLLOUT_STEP}
     for path, counts in by_path.items():
         for name, per_call in expected[path].items():
             check(per_call == 0 or counts[name] > 0,
@@ -2760,6 +3152,9 @@ def main(argv=None) -> int:
            for arch, st in grid_stats.items()},
         GridNet_GAN={k: v for k, v in grid_gan_stats.items() if k in keep},
         train_CLI={k: v for k, v in cli_stats.items() if k != "warm_start"},
+        rollout_training={k: {n: x for n, x in v.items()
+                              if n not in ("profile", "groups")}
+                          for k, v in rollout_stats.items()},
         device_ms_by_group={arch: st["groups"]
                             for arch, st in grid_stats.items()})),
         flush=True)

@@ -84,34 +84,80 @@ def test_every_flag_is_covered():
     assert covered == dests
 
 
+# ROADMAP item 6's options (ported: each is accepted and selects its step,
+# loader or model, but the JAX package's two scan executors, which are
+# accepted and change nothing) and item 5's (still refused); the ids are
+# the option names
 UNPORTED = [
     (dict(multistep_k=2), "multistep_k", 6),
     (dict(scheduled_sampling=0.5), "scheduled_sampling", 6),
     (dict(chunk_steps=4), "chunk_steps", 6),
     (dict(device_data=True), "device_data", 6),
-    (dict(epoch_scan=True), "epoch_scan", 6),
+    (dict(epoch_scan=True, device_data=True), "epoch_scan", 6),
     (dict(remat=True), "remat", 6),
     (dict(put_thread=True), "put_thread", 5),
     (dict(mesh_shape=(2,)), "mesh_shape", 5),
 ]
+ACCEPTED_AT = dict(dataset="synthetic", device="cpu", image_size=(32, 32),
+                   filters_level=(4, 6, 8), synthetic_train_size=8,
+                   synthetic_val_size=4, batch_size=4, edge=False,
+                   workers=1)
+
+
+def selected(trainer: Trainer, name: str) -> bool:
+    """Whether the trainer runs what option ``name`` asks for."""
+    from video_layout_generation_tpu_torch.data.device_synthetic import \
+        DeviceSyntheticLoader
+    step = trainer._train_step.__qualname__
+    return {
+        "multistep_k": step.startswith("make_multistep_train_step"),
+        "scheduled_sampling": "Trainer.__init__" in step
+        and trainer._ss_p == 0.5,
+        "device_data": isinstance(trainer.train_loader,
+                                  DeviceSyntheticLoader),
+        "remat": trainer.model.remat,
+    }[name]
 
 
 @pytest.mark.parametrize("kw,name,item", UNPORTED,
                          ids=[u[1] for u in UNPORTED])
 def test_unported_option_raises_from_trainer(kw, name, item, tmp_path):
-    cfg = tconfig.Config(dataset="synthetic", device="cpu",
-                         path=str(tmp_path), **kw)
-    with pytest.raises(NotImplementedError,
-                       match=rf"{name}.*ROADMAP item {item}"):
-        Trainer(cfg)
-    assert not (tmp_path / "checkpoint").exists()   # raised before building
+    """Item 5's options raise ``NotImplementedError`` naming the item,
+    before anything is built; item 6's build a trainer that runs them, and
+    the scan executors' build the trainer the other options alone build
+    (the same step and loader, one step a batch)."""
+    if item == 5:
+        cfg = tconfig.Config(dataset="synthetic", device="cpu",
+                             path=str(tmp_path), **kw)
+        with pytest.raises(NotImplementedError,
+                           match=rf"{name}.*ROADMAP item {item}"):
+            Trainer(cfg)
+        assert not (tmp_path / "checkpoint").exists()   # raised first
+        return
+    if name in ("chunk_steps", "epoch_scan"):
+        rest = {k: v for k, v in kw.items() if k != name}
+        plain = Trainer(tconfig.Config(path=None, **dict(ACCEPTED_AT, **rest)))
+        trainer = Trainer(tconfig.Config(path=None,
+                                         **dict(ACCEPTED_AT, **kw)))
+        assert getattr(trainer.cfg, name) == kw[name]
+        assert (trainer._train_step.__qualname__
+                == plain._train_step.__qualname__)
+        assert type(trainer.train_loader) is type(plain.train_loader)
+        assert {k for k in vars(trainer)} == {k for k in vars(plain)}
+        return
+    plain = Trainer(tconfig.Config(path=None, **ACCEPTED_AT))
+    assert not selected(plain, name)
+    trainer = Trainer(tconfig.Config(path=None, **dict(ACCEPTED_AT, **kw)))
+    assert selected(trainer, name)
 
 
 def test_fast_executor_flags_are_accepted_without_effect():
     cfg = tconfig.config_from_args(["--no_fast_train", "--no_fast_rollout",
-                                    "--mesh_shape", "1"])
+                                    "--mesh_shape", "1", "--chunk_steps",
+                                    "2", "--epoch_scan"])
     assert not cfg.fast_train and not cfg.fast_rollout
     assert cfg.mesh_shape == (1,)
+    assert cfg.chunk_steps == 2 and cfg.epoch_scan
     help_text = tconfig.build_arg_parser().format_help()
     assert "no effect in the port" in help_text
-    assert "ROADMAP item 6" in help_text and "ROADMAP item 5" in help_text
+    assert "ROADMAP item 5" in help_text and "ROADMAP item 6" not in help_text

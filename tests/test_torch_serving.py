@@ -129,7 +129,9 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     imported = set(out.stdout.split())
-    assert len(imported) >= 60
+    assert len(imported) >= 63
+    assert {"train.multistep", "train.scheduled",
+            "data.device_synthetic"} <= imported
     assert {"config", "main", "runner", "data", "data.index", "data.stats",
             "data.synthetic", "data.cityscapes", "data.pipeline",
             "io.checkpoint", "io.logging", "io.tb", "utils.meters",

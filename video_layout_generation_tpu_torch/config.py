@@ -12,10 +12,17 @@ place what each does here:
 - ``fast_train`` and ``fast_rollout`` choose the JAX package's packed
   (space-to-depth) executors, which the port does not have: it runs the
   NHWC model, whose kernels serve every path. Accepted, no effect.
-- ``multistep_k > 1``, ``scheduled_sampling > 0``, ``chunk_steps > 1``,
-  ``device_data``, ``epoch_scan``, ``put_thread``, ``remat`` and a
-  ``mesh_shape`` of more than one device are not ported yet: ``Trainer``
-  raises ``NotImplementedError`` naming the ROADMAP item that ports them.
+- ``chunk_steps`` and ``epoch_scan`` choose the JAX package's executors
+  that fuse K steps, or an epoch, into one compiled scan so that the host
+  syncs once a chunk or an epoch. An eager step here already queues its
+  work without a sync, and the train loop fetches a loss only on logged
+  steps, so the port runs every configuration step by step. Accepted, no
+  effect; the JAX package's ``ValueError`` for the combinations it refuses
+  stays (``train/trainer.py:check_options``), so an invocation is valid in
+  both packages or in neither.
+- ``put_thread`` and a ``mesh_shape`` of more than one device (data
+  parallelism) are not ported yet: ``Trainer`` raises
+  ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -86,28 +93,31 @@ class Config:
     w_style: float = 20.0
     w_seg: float = 10.0
 
-    # -- multi-step training (not ported yet: ROADMAP item 6) ---------------
-    multistep_k: int = 1
-    multistep_remat: bool = True
+    # -- rollout-fidelity training (train/multistep.py, train/scheduled.py) --
+    multistep_k: int = 1                # > 1: K-step backprop through the
+                                        # rollout on K+2-frame windows
+    multistep_remat: bool = True        # recompute each step in backward
     multistep_discount: float = 1.0
     multistep_feedback_noise: float = 0.0
     multistep_layout_noise: float = 0.0
     multistep_image_weight: float = 1.0
     multistep_image_discount: float = 1.0
-    scheduled_sampling: float = 0.0
-    scheduled_ramp: int = 0
+    scheduled_sampling: float = 0.0     # p of feeding back the model's own
+                                        # prediction (4-frame windows)
+    scheduled_ramp: int = 0             # epochs to ramp p up (0: constant)
 
     # -- precision / performance -------------------------------------------
     compute_dtype: str = "bfloat16"     # activation dtype inside the nets
     loss_dtype: str = "float32"         # losses always reduced in f32
-    remat: bool = False                 # not ported yet (ROADMAP item 6)
+    remat: bool = False                 # recompute GridNet's grid columns
     fast_rollout: bool = True           # the JAX package's packed executors:
     fast_train: bool = True             # accepted, no effect in the port
     transfer_uint8: bool = True         # batches leave the host as uint8
                                         # (decoded on the device)
-    device_data: bool = False           # not ported yet (ROADMAP item 6)
-    epoch_scan: bool = False            # not ported yet (ROADMAP item 6)
-    chunk_steps: int = 0                # not ported yet (ROADMAP item 6)
+    device_data: bool = False           # synthetic: render batches on the
+                                        # card (data/device_synthetic.py)
+    epoch_scan: bool = False            # the JAX package's scan executors:
+    chunk_steps: int = 0                # accepted, no effect in the port
     put_thread: bool = False            # not ported yet (ROADMAP item 5)
 
     # -- runtime ------------------------------------------------------------
@@ -234,7 +244,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--rollout_fidelity_scenes", type=int, default=8)
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
     p.add_argument("--loss_dtype", type=str, default="float32")
-    p.add_argument("--remat", action="store_true", help=_unported("6"))
+    p.add_argument("--remat", action="store_true")
     p.add_argument("--image_size", type=int, nargs=2, default=(256, 256),
                    metavar=("H", "W"))
     p.add_argument("--n_classes", type=int, default=20)
@@ -259,22 +269,18 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    action="store_true", default=True)
     p.add_argument("--no_transfer_uint8", dest="transfer_uint8",
                    action="store_false")
-    p.add_argument("--multistep_k", type=int, default=1,
-                   help="1; more " + _unported("6"))
+    p.add_argument("--multistep_k", type=int, default=1)
     p.add_argument("--multistep_discount", type=float, default=1.0)
     p.add_argument("--multistep_feedback_noise", type=float, default=0.0)
     p.add_argument("--multistep_layout_noise", type=float, default=0.0)
     p.add_argument("--multistep_image_weight", type=float, default=1.0)
     p.add_argument("--multistep_image_discount", type=float, default=1.0)
-    p.add_argument("--scheduled_sampling", type=float, default=0.0,
-                   help="0; more " + _unported("6"))
+    p.add_argument("--scheduled_sampling", type=float, default=0.0)
     p.add_argument("--scheduled_ramp", type=int, default=0)
-    p.add_argument("--device_data", action="store_true", default=False,
-                   help=_unported("6"))
+    p.add_argument("--device_data", action="store_true", default=False)
     p.add_argument("--epoch_scan", action="store_true", default=False,
-                   help=_unported("6"))
-    p.add_argument("--chunk_steps", type=int, default=0,
-                   help="0 or 1; more " + _unported("6"))
+                   help=_NO_EFFECT)
+    p.add_argument("--chunk_steps", type=int, default=0, help=_NO_EFFECT)
     p.add_argument("--put_thread", dest="put_thread",
                    action="store_true", default=False, help=_unported("5"))
     p.add_argument("--multistep_remat", dest="multistep_remat",

@@ -43,7 +43,7 @@ class SyntheticTriplets:
         # n_frames == 3 keeps the reference 6-field triplet contract;
         # n_frames > 3 emits the stacked window contract
         # {"imgs": (T,H,W,3), "segs": (T,H,W)} used by multi-step training
-        # (the JAX package's train/multistep.py; not ported yet)
+        # and scheduled sampling (train/multistep.py, train/scheduled.py)
         self.n_frames = n_frames
         ids_fit = n_classes <= 255
         self._cache = {} if (cache and ids_fit) else None
@@ -86,7 +86,8 @@ class SyntheticTriplets:
     def scene_table(self) -> np.ndarray:
         """(size, n_shapes, 7) float32 scene-parameter table
         [cls, cy, cx, hh, ww, vy, vx] — the complete generative state of
-        every sample (what a renderer on the device would upload once)."""
+        every sample, which the device renderer
+        (data/device_synthetic.py) uploads once."""
         out = np.zeros((self.size, self.n_shapes, 7), np.float32)
         for i in range(self.size):
             out[i] = np.asarray(self._scene(i), np.float32)

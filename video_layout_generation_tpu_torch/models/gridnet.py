@@ -25,6 +25,11 @@ the CoordConv stem's coordinate channels and its stand-alone PReLU are
 torch ops under autograd. Parameters stay f32; the blocks hand the kernels
 a differentiable bf16 cast of each kernel, so the f32 gradient is the bf16
 one cast back, as in the JAX package's bf16 step.
+
+``remat=True`` (the JAX package's ``nn.remat`` of each grid column) runs
+every column through ``torch.utils.checkpoint`` when autograd is on: the
+backward runs each column's forward again, 20 launches of A and 15 of B
+more a step, and keeps only the columns' inputs alive in between.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .blocks import (CoordLateralBlock, DownSamplingBlock, LateralBlock,
                      UpSamplingBlock)
@@ -102,10 +108,11 @@ class GridNet(nn.Module):
                  img_out: int = 3,
                  filters_level: Sequence[int] = (32, 64, 96),
                  coord_in: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, remat: bool = False):
         super().__init__()
         f0, f1, f2 = filters_level
         self.dtype = dtype
+        self.remat = remat
         lat_in = CoordLateralBlock if coord_in else LateralBlock
         self.lateral_in = lat_in(n_channels, f0, shortcut_conv=True)
         self.down_00 = DownSamplingBlock(f0, f1)
@@ -126,9 +133,17 @@ class GridNet(nn.Module):
         x0 = self.lateral_in(x, plain=plain)
         x1 = self.down_00(x0, plain=plain)
         x2 = self.down_10(x1, plain=plain)
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(1, N_COL):
-            x0, x1, x2 = self._modules[f"col_{i}"](x0, x1, x2, plain=plain,
-                                                   upsample=upsample)
+            col = self._modules[f"col_{i}"]
+            if remat:
+                # nothing random inside a column: no RNG state to replay
+                x0, x1, x2 = checkpoint(col, x0, x1, x2, plain=plain,
+                                        upsample=upsample,
+                                        use_reentrant=False,
+                                        preserve_rng_state=False)
+            else:
+                x0, x1, x2 = col(x0, x1, x2, plain=plain, upsample=upsample)
         seg = self.lateral_out_seg(x0, plain=plain)
         img = self.lateral_out_img(x0, plain=plain)
         return seg.float(), img.float()

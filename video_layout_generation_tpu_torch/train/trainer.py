@@ -5,9 +5,13 @@ optimizer state, the optional discriminator, the loaders and the writer,
 then runs the epoch loop: train -> validate -> checkpoint, with warm start
 (``ckpt``), resume (``resume``), TensorBoard scalars and images, ``.npy``
 dumps of validation batches and rollouts, and rollout fidelity. It drives
-the step functions of ``train/steps.py`` and ``train/gan.py`` and the
-rollout of ``train/rollout.py``, on the card unless ``cfg.device`` names
-the CPU; every 3x3 conv of the path is a launch of kernel A or B there.
+the step functions of ``train/steps.py``, ``train/gan.py``,
+``train/multistep.py`` (``multistep_k > 1``) and ``train/scheduled.py``
+(``scheduled_sampling``) one step at a time, on batches from the host or
+rendered on the card (``data/device_synthetic.py``: ``device_data``), and
+the rollout of ``train/rollout.py``, on the card unless ``cfg.device``
+names the CPU; every 3x3 conv of the path is a launch of kernel A or B
+there.
 
 Differences from the JAX ``Trainer``, each forced by the port:
 
@@ -17,14 +21,19 @@ Differences from the JAX ``Trainer``, each forced by the port:
   generator state. The JAX loop's threefry ``fold_in`` stream cannot be
   reproduced, so the coins differ from the JAX package's; the generator
   stays on the host, where a batch coin costs the step no wait for the
-  card. The WGAN-GP mixing weights come from a generator on the device,
-  reseeded the same way;
+  card. The WGAN-GP mixing weights, the K-step feedback noise and layout
+  corruption and the scheduled-sampling mask come from a generator on the
+  device, reseeded the same way;
 - restores write into the live tensors with ``copy_`` (parameters,
   buffers, moments; ``learning_rate`` and ``count`` by value), since the
   train state holds the modules' own parameters and the kernels' weight
   packs are keyed on the tensor's version;
 - ``check_supported`` refuses, in one place, the options of the JAX
-  package that are not ported yet.
+  package that are not ported yet (data parallelism); ``check_options``
+  raises the JAX package's ``ValueError`` for the combinations it refuses,
+  before anything is built;
+- ``chunk_steps`` and ``epoch_scan`` (the JAX package's scan executors)
+  change nothing: the loop runs every step itself (``config.py``).
 """
 
 from __future__ import annotations
@@ -52,7 +61,10 @@ from ..ops.colorize import colorize_seg
 from ..utils.meters import StepTimer
 from .assemble import denormalize_image, normalize_image
 from .gan import GanTrainState, make_gan_train_step
+from .multistep import (is_window_batch, make_multistep_train_step,
+                        window_to_triplet_batch)
 from .rollout import make_rollout_fn
+from .scheduled import make_scheduled_train_step, scheduled_p
 from .state import (TrainState, current_lr, epoch_decayed_lr, make_optimizer,
                     set_lr)
 from .steps import decode_batch, make_eval_step, make_train_step
@@ -92,23 +104,51 @@ def validate(eval_step: Callable, batches: Iterable, n_classes: int,
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for an option of the JAX package that
     the port does not run yet, naming the ROADMAP item that ports it.
-    ``fast_train`` and ``fast_rollout`` choose the JAX package's packed TPU
-    executors and change nothing here."""
+    ``fast_train``, ``fast_rollout``, ``chunk_steps`` and ``epoch_scan``
+    choose the JAX package's TPU executors and change nothing here."""
     unported = [
-        (cfg.multistep_k > 1, "multistep_k > 1", 6),
-        (cfg.scheduled_sampling > 0, "scheduled_sampling > 0", 6),
-        (cfg.chunk_steps > 1, "chunk_steps > 1", 6),
-        (cfg.device_data, "device_data", 6),
-        (cfg.epoch_scan, "epoch_scan", 6),
-        (cfg.remat, "remat", 6),
-        (cfg.put_thread, "put_thread", 5),
+        (cfg.put_thread, "put_thread"),
         (cfg.mesh_shape is not None and int(np.prod(cfg.mesh_shape)) > 1,
-         f"mesh_shape {cfg.mesh_shape} (more than one device)", 5),
+         f"mesh_shape {cfg.mesh_shape} (more than one device)"),
     ]
-    for bad, what, item in unported:
+    for bad, what in unported:
         if bad:
             raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP item {item})")
+                f"{what} is not ported yet (ROADMAP item 5)")
+
+
+def check_options(cfg: Config) -> None:
+    """The JAX ``Trainer``'s ``ValueError`` for each combination of step and
+    executor it refuses, with its message, in its order (the executors
+    have no effect here, but a configuration valid in one package is
+    valid in the other)."""
+    executor = cfg.epoch_scan or cfg.chunk_steps > 1
+    refused = [
+        (cfg.gan_train and cfg.multistep_k > 1,
+         "multistep_k > 1 is not supported with gan_train (single-step "
+         "adversarial loss)"),
+        (cfg.gan_train and cfg.scheduled_sampling > 0,
+         "scheduled_sampling is not supported with gan_train (single-step "
+         "adversarial loss)"),
+        (cfg.multistep_k > 1 and cfg.scheduled_sampling > 0,
+         "scheduled_sampling and multistep_k > 1 are separate "
+         "rollout-fidelity objectives; pick one"),
+        (executor and cfg.gan_train,
+         "epoch_scan / chunk_steps need a non-GAN trainer (scan carries one "
+         "TrainState)"),
+        (executor and cfg.scheduled_sampling > 0,
+         "scheduled_sampling is per-step only (its p-ramp changes the "
+         "program across epochs)"),
+        (cfg.epoch_scan and not cfg.device_data,
+         "epoch_scan requires device_data=True (use chunk_steps for "
+         "host-fed data)"),
+        (cfg.chunk_steps > 1 and cfg.device_data,
+         "chunk_steps is the host-fed executor; device_data already has "
+         "epoch_scan"),
+    ]
+    for bad, msg in refused:
+        if bad:
+            raise ValueError(msg)
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -134,7 +174,7 @@ def _build_model(cfg: Config, dtype):
             generator=torch.Generator().manual_seed(cfg.seed))
     return _seeded(cfg.seed, lambda: get_model_cls(cfg.arch)(
         n_channels=cfg.model_in_channels, dtype=dtype,
-        filters_level=tuple(cfg.filters_level)))
+        filters_level=tuple(cfg.filters_level), remat=cfg.remat))
 
 
 class _RolloutModel:
@@ -152,6 +192,7 @@ class _RolloutModel:
 class Trainer:
     def __init__(self, cfg: Config, dataset_train=None, dataset_val=None):
         check_supported(cfg)
+        check_options(cfg)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         if cfg.path:
@@ -183,14 +224,16 @@ class Trainer:
                             moment_dtype=mu_dt)
         gen_state = TrainState.create(self.model, tx)
         self._flip_gen = torch.Generator()
-        self._gp_gen = None
+        # on the device: WGAN-GP weights, rollout noise, sampling mask
+        self._device_gen = (torch.Generator(device=dev) if cfg.gan_train
+                            or cfg.multistep_k > 1
+                            or cfg.scheduled_sampling > 0 else None)
         if cfg.gan_train:
             self.disc = self._build_discriminator(cfg, dtype).to(dev)
             d_tx = make_optimizer(cfg.optimizer, cfg.lr, cfg.beta1)
             self.state = GanTrainState(gen=gen_state,
                                        disc=TrainState.create(self.disc,
                                                               d_tx))
-            self._gp_gen = torch.Generator(device=dev)
         else:
             self.disc = None
             self.state = gen_state
@@ -221,7 +264,27 @@ class Trainer:
             self._train_step = make_gan_train_step(
                 self.model, self.disc, self.hned, self.combined,
                 cfg.gan_mode, disc_batch_stats=(self.disc.norm == "batch"),
-                generator=self._flip_gen, gp_generator=self._gp_gen, **kw)
+                generator=self._flip_gen, gp_generator=self._device_gen, **kw)
+        elif cfg.multistep_k > 1:
+            self._train_step = make_multistep_train_step(
+                self.model, self.hned, self.combined, cfg.multistep_k,
+                remat_steps=cfg.multistep_remat,
+                discount=cfg.multistep_discount,
+                feedback_noise=cfg.multistep_feedback_noise,
+                layout_noise=cfg.multistep_layout_noise,
+                image_weight=cfg.multistep_image_weight,
+                image_discount=cfg.multistep_image_discount,
+                generator=self._flip_gen, noise_generator=self._device_gen,
+                **kw)
+        elif cfg.scheduled_sampling > 0:
+            ss_step = make_scheduled_train_step(
+                self.model, self.hned, self.combined,
+                generator=self._flip_gen, noise_generator=self._device_gen,
+                **kw)
+            self._ss_p = scheduled_p(0, cfg.scheduled_sampling,
+                                     cfg.scheduled_ramp)
+            # p is read at each call: set_epoch's ramp moves it
+            self._train_step = (lambda st, b: ss_step(st, b, self._ss_p))
         else:
             self._train_step = make_train_step(
                 self.model, self.hned, self.combined,
@@ -239,7 +302,16 @@ class Trainer:
         # --- data --------------------------------------------------------
         if dataset_train is None:
             dataset_train, dataset_val = self._default_datasets()
-        self.train_loader = self._wrap_loader(dataset_train, shuffle=True)
+        if cfg.device_data:
+            if not hasattr(dataset_train, "scene_table"):
+                raise ValueError("device_data=True needs a dataset exposing "
+                                 "scene_table() (synthetic only)")
+            from ..data.device_synthetic import DeviceSyntheticLoader
+            self.train_loader = DeviceSyntheticLoader(
+                dataset_train, cfg.batch_size, device=dev, seed=cfg.seed,
+                n_frames=getattr(dataset_train, "n_frames", 3))
+        else:
+            self.train_loader = self._wrap_loader(dataset_train, shuffle=True)
         self.val_loader = self._wrap_loader(dataset_val, shuffle=False)
 
         # --- observability ----------------------------------------------
@@ -299,11 +371,12 @@ class Trainer:
                                           and self.cfg.n_classes <= 255))
         return DeviceLoader(host, self.device)
 
-    def _seed_step(self):
-        s = step_seed(self.cfg.seed, self.global_step)
+    def _seed_step(self, step: int):
+        """Reseed the step's generators for global step ``step``."""
+        s = step_seed(self.cfg.seed, step)
         self._flip_gen.manual_seed(s)
-        if self._gp_gen is not None:
-            self._gp_gen.manual_seed(s)
+        if self._device_gen is not None:
+            self._device_gen.manual_seed(s)
 
     # ------------------------------------------------------------------
     def set_epoch(self, epoch: int):
@@ -312,6 +385,9 @@ class Trainer:
         self.train_loader.set_epoch(epoch)
         self.val_loader.set_epoch(epoch)
         cfg = self.cfg
+        if cfg.scheduled_sampling > 0:
+            self._ss_p = scheduled_p(epoch, cfg.scheduled_sampling,
+                                     cfg.scheduled_ramp)
         lr = None
         # pix2pix scheduler policies
         if cfg.lr_policy == "linear":
@@ -351,7 +427,7 @@ class Trainer:
             timer.mark_loaded()
             load_s += timer.load_time
             self.global_step += 1
-            self._seed_step()
+            self._seed_step(self.global_step)
             self.state, metrics = self._train_step(self.state, batch)
             if i % cfg.print_freq == 0:
                 # the host waits for the card only on logged steps
@@ -369,6 +445,8 @@ class Trainer:
                         self.writer.add_scalar(
                             f"train/{k}", float(metrics[k]),
                             self.global_step)
+                if "loss_per_step" in metrics:
+                    self._log_per_step(metrics["loss_per_step"])
                 if (self.writer.active
                         and i % max(cfg.disp_interval, 1) == 0):
                     self._log_train_images(batch)
@@ -378,20 +456,35 @@ class Trainer:
         # epoch end: one fetch, so that every queued step has run
         if metrics is not None:
             float(metrics["loss"])
-        wall = time.perf_counter() - t0
-        self.epoch_stats = dict(steps=n_batches, wall_s=wall, load_s=load_s,
-                                comp_s=comp_s, samples=n_batches
-                                * self.cfg.batch_size)
+        self._end_epoch(n_batches, time.perf_counter() - t0, load_s, comp_s)
+
+    def _end_epoch(self, steps: int, wall: float, load_s: float,
+                   comp_s: float):
+        self.epoch_stats = dict(steps=steps, wall_s=wall, load_s=load_s,
+                                comp_s=comp_s,
+                                samples=steps * self.cfg.batch_size)
         self.logger.info(
             "Epoch [%d/%d] %d steps in %.3fs (load %.3fs, comp %.3fs), "
-            "%.1f samples/s" % (self.epoch, cfg.epochs, n_batches, wall,
+            "%.1f samples/s" % (self.epoch, self.cfg.epochs, steps, wall,
                                 load_s, comp_s,
                                 self.epoch_stats["samples"] / max(wall, 1e-9)))
         self.logger.debug("epoch drained at step %d" % self.model_state.step)
 
+    def _log_per_step(self, per_step: torch.Tensor):
+        """The K-step loss's terms summed for each rollout step."""
+        vals = per_step.tolist()
+        self.logger.info("loss per rollout step [%s]"
+                         % " ".join("%.4f" % v for v in vals))
+        for j, v in enumerate(vals):
+            self.writer.add_scalar(f"train/loss_step{j + 1}", v,
+                                   self.global_step)
+
     def _log_train_images(self, batch):
         """TensorBoard grids: GT frame, generated frame, GT and predicted
-        layouts (colorized), and the generated frame's edge map."""
+        layouts (colorized), and the generated frame's edge map; a window
+        batch shows its first triplet."""
+        if is_window_batch(batch):
+            batch = window_to_triplet_batch(batch)
         _, seg_ids, img_n = self._eval_step(batch)
         batch = decode_batch(batch)
         step = self.global_step
