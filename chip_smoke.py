@@ -120,7 +120,29 @@ Phases:
      samples/s of each, busy ms a step, idle share and peak memory of the
      recipe.
 
-The launch counters are set to 0 just before each of the phases 3-12 and
+ 13. the layout families (BASELINE.json's configs 1-3; their convs are the
+     library's, as the JAX package's are XLA's, so no kernel of the port
+     runs and every launch counter must stay 0): (a) the committed
+     ``cvae256_036`` CVAE snapshot (256x256, latent 64, b16) through
+     ``LayoutTrainer(ckpt=...)``: ``validate`` over 64 synthetic samples in
+     bf16 and in f32 with the same noise (mIoU within 0.01, layouts of one
+     batch >= 0.98 equal; f32 mIoU within 0.03 of the JAX package's 0.7834
+     on this snapshot and data), ``evaluate_layout_rollout`` over 16 frames
+     of 16 scenes, rollout frames/s at b16, b1 latency, a profile and peak
+     memory of one rollout; (b) CVAE training through ``layout_cli`` (2
+     epochs of 64, b16), the K=3 exposure leg from the snapshot (lr 5e-5,
+     5-frame windows, one epoch), and step 1 of that K=3 step in f32 on the
+     card (TF32 off) against the CPU with the same batch and noise (loss
+     and reconstruction within 1e-3, the KL within one f32 ulp at 1 a
+     latent element, gradients within 1e-2 in L2); (c) the ConvLSTM
+     (128x128, hidden 64, b16) and the VAE (64x64, b4) through
+     ``layout_cli``, two epochs each (the rate of the second), the
+     ConvLSTM's 4-frame rollout fidelity; (d) a resume of (b): parameters, moments, step and the first
+     validation equal to the checkpoint's bits, then epoch 3. Printed:
+     scores, the per-step rollout curve beside the JAX package's, train
+     samples/s of each, and the phase's time.
+
+The launch counters are set to 0 just before each of the phases 3-13 and
 read just after it; a kernel of a phase's path that was launched no time
 fails the run. Any failure exits non-zero. The line before the last is the
 ``kernels`` JSON object; the last line is ``{"ok": true, "device": {...}}``. With no CUDA
@@ -2976,8 +2998,18 @@ def run_rollout_training(torch, kern, seed: int):
         calls_d, hist_d = {}, []
         watch_rollout_steps(kern, trainer, calls_d,
                             LAUNCHES_PER_ROLLOUT_STEP, hist_d)
-        dev_prof = traced_epoch(torch, trainer, 0,
-                                LAUNCHES_PER_ROLLOUT_STEP, "rollout (d)")
+        for attempt in range(TRACE_TRIES):
+            retry_pause(attempt)
+            dev_prof = traced_epoch(torch, trainer, 10 * attempt,
+                                    LAUNCHES_PER_ROLLOUT_STEP, "rollout (d)")
+            if dev_prof["h2d"] == 1:
+                break
+            # the same 19 cudaMemcpyAsync calls came back once with one
+            # device-to-host record fewer: a dropped record raises h2d
+            print(f"rollout (d): {dev_prof['h2d']} copies to the card "
+                  f"counted from {dev_prof['memcpy_calls']} copy calls; the "
+                  f"trace may have dropped a copy record, taking it again",
+                  flush=True)
         check(dev_prof["h2d"] == 1 and dev_prof["pinned"]["n"] <= 1
               and dev_prof["pageable"]["n"] == 0,
               f"rollout (d): copies to the card {dev_prof}, expected the "
@@ -3005,6 +3037,401 @@ def run_rollout_training(torch, kern, seed: int):
           f"sampling {stats['scheduled']['samples_per_s']:.1f}; rendered "
           f"on the card {stats['device_data']['samples_per_s']:.1f}; device "
           f"ms by group " + json.dumps(rec["groups"]), flush=True)
+    return launches, stats
+
+
+# ---- phase 13: the layout families -------------------------------------------
+#
+# BASELINE.json's configs 1-3 through the port's LayoutTrainer, layout_cli
+# and evaluate_layout_rollout at full width, data cut in scale only: the
+# CVAE of config 3 from the committed trained snapshot (256x256, latent 64,
+# b16), its CLI training, the K=3 exposure leg (BENCH_NOTES round 5 "E"),
+# the ConvLSTM of config 2 (128x128, hidden 64) and the VAE of config 1
+# (64x64, b4). The nets' convs are the library's (cuDNN), as the JAX
+# package's are XLA's: no hand-written kernel runs on this path.
+
+CVAE_NPZ = os.path.join(os.path.dirname(FLAGSHIP), "cvae256_036.npz")
+LAYOUT_HW, LAYOUT_LATENT, LAYOUT_FRAMES = 256, 64, 16
+LAYOUT_VAL, LAYOUT_TRAIN, LAYOUT_CLI_VAL = 64, 64, 16
+LAYOUT_SCENES = 16            # rollout scenes, as tools/layout_convergence.py
+LSTM_HW, LSTM_HIDDEN, LSTM_FRAMES = 128, 64, 4
+VAE_HW, VAE_BATCH = 64, 4
+EXPOSURE_K, EXPOSURE_LR, EXPOSURE_BETA = 3, 5e-5, 0.05
+CARD_CPU_BATCH = 2            # the K=3 step held against the CPU's
+# the JAX package on this snapshot and data (BENCH_NOTES.md, round 4):
+# next-layout validation mIoU / pixel accuracy, and the 16-frame
+# prior-sample rollout's per-step mIoU
+JAX_CVAE_MIOU, JAX_CVAE_PIXACC = 0.7834, 0.9761
+JAX_CVAE_CURVE = (0.778, 0.592, 0.440, 0.323, 0.234, 0.169, 0.127, 0.097,
+                  0.078, 0.066, 0.057, 0.052, 0.050, 0.049, 0.048, 0.048)
+CVAE_MIOU_TOL = 0.03        # |port - JAX| validation mIoU (other noise draws)
+CVAE_DTYPE_MIOU_TOL = 0.01  # bf16 against f32 validation mIoU, on the card
+CVAE_DTYPE_AGREEMENT = 0.98   # bf16 against f32 layouts of one batch
+CARD_CPU_LOSS_RTOL = 1e-3   # K=3 step, f32 card (TF32 off) vs f32 CPU:
+CARD_CPU_GRAD_L2 = 1e-2     # loss and recon relative, gradients in L2,
+# and the KL, a sum over the latent's 32*32*64 elements a sample of terms of
+# order 1 that cancel to about 0.2, per element: one f32 ulp at 1
+CARD_CPU_KL_PER_ELEMENT = 2.0 ** -23
+
+
+def layout_cfg(**kw):
+    from video_layout_generation_tpu_torch.config import Config
+    base = dict(dataset="synthetic", image_size=(LAYOUT_HW, LAYOUT_HW),
+                n_classes=N_CLASSES, batch_size=BATCH, workers=4,
+                rollout_frames=LAYOUT_FRAMES, edge=False, device=DEVICE,
+                path=None)
+    base.update(kw)
+    return Config(**base)
+
+
+def check_no_launches(kern, label: str) -> dict:
+    counts = kern.launch_counts()
+    check(all(v == 0 for v in counts.values()),
+          f"layout families, {label}: hand-written kernels launched "
+          f"{counts}, expected none")
+    return counts
+
+
+def wall_of(torch, fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def layout_rollout_rates(torch, trainer, seed: int) -> dict:
+    """Frames/s of a b16 16-frame CVAE rollout (upload to fetch, best of
+    3), b1 latency (median of 5), and a profile and peak memory of one b16
+    rollout."""
+    from video_layout_generation_tpu_torch.models.vae import (
+        make_cvae_rollout)
+    rollout = make_cvae_rollout(trainer.model, LAYOUT_FRAMES, N_CLASSES)
+    dev = trainer.device
+    rng = np.random.default_rng(seed)
+    s1, s2 = (rng.integers(0, N_CLASSES, (BATCH, LAYOUT_HW, LAYOUT_HW))
+              .astype(np.uint8) for _ in range(2))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def request(n):
+        out = rollout(torch.from_numpy(s1[:n]).to(dev),
+                      torch.from_numpy(s2[:n]).to(dev), gen)
+        return out.to(torch.uint8).cpu()
+
+    request(BATCH)
+    walls = [wall_of(torch, lambda: request(BATCH)) for _ in range(3)]
+    request(1)
+    b1 = sorted(wall_of(torch, lambda: request(1)) for _ in range(5))[2]
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_call(f"CVAE rollout b{BATCH}, {LAYOUT_FRAMES} frames",
+                        lambda: request(BATCH))
+    return dict(fps=BATCH * LAYOUT_FRAMES / min(walls),
+                b1_latency_ms=b1 * 1e3, busy_ms=prof["busy_ms"],
+                wall_ms=prof["wall_ms"], idle=prof["idle"],
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                groups=prof["groups"])
+
+
+def first_val_prediction(torch, trainer):
+    from video_layout_generation_tpu_torch.train.steps import decode_batch
+    batch = decode_batch(next(iter(trainer.val_loader)))
+    trainer._seed_noise(trainer.cfg.seed + 1, 0)
+    return trainer.predict(batch)
+
+
+def run_cvae_validation(torch, kern, seed: int) -> dict:
+    """Part (a): the snapshot validated in bf16 and f32 with the same noise,
+    the 16-frame rollout fidelity and the rollout's rates."""
+    from video_layout_generation_tpu_torch.data.synthetic import (
+        SyntheticTriplets)
+    from video_layout_generation_tpu_torch.evaluation import (
+        evaluate_layout_rollout)
+    from video_layout_generation_tpu_torch.train.layout_trainer import (
+        LayoutTrainer)
+    cfg = layout_cfg(ckpt=CVAE_NPZ, synthetic_val_size=LAYOUT_VAL,
+                     synthetic_train_size=BATCH)
+    out = {}
+    preds = {}
+    for dtype in ("bfloat16", "float32"):
+        t = LayoutTrainer(cfg.replace(compute_dtype=dtype), family="cvae",
+                          latent_dim=LAYOUT_LATENT)
+        check(len(t.warm_start_report["loaded"]) == 42
+              and not t.warm_start_report["missing"],
+              f"layout (a): the snapshot did not load whole "
+              f"({len(t.warm_start_report['loaded'])} of 42)")
+        t0 = time.perf_counter()
+        val = t.validate()
+        wall = time.perf_counter() - t0
+        out[dtype] = dict(miou=val["miou"], pixel_acc=val["pixel_acc"],
+                          val_samples_per_s=LAYOUT_VAL / wall)
+        preds[dtype] = first_val_prediction(torch, t)
+        if dtype == "bfloat16":
+            ds = SyntheticTriplets(size=LAYOUT_SCENES,
+                                   image_hw=cfg.image_size,
+                                   seed=cfg.seed + 7)
+            fid = evaluate_layout_rollout(t, ds, range(LAYOUT_SCENES),
+                                          n_frames=LAYOUT_FRAMES)
+            out["rollout_per_step_miou"] = [
+                float(v) for v in fid["per_step_miou"]]
+            out["rollout_mean_miou"] = fid["mean_miou"]
+            out["rates"] = layout_rollout_rates(torch, t, seed)
+        del t
+    bf, f32 = out["bfloat16"], out["float32"]
+    agree = float((preds["bfloat16"] == preds["float32"]).float().mean())
+    out["bf16_f32_agreement"] = agree
+    print(f"layout (a): CVAE config 3 (cvae256_036.npz, {LAYOUT_HW}^2, "
+          f"latent {LAYOUT_LATENT}, b{BATCH}), validation over "
+          f"{LAYOUT_VAL}: bf16 mIoU {bf['miou']:.4f} pixel accuracy "
+          f"{bf['pixel_acc']:.4f}, f32 mIoU {f32['miou']:.4f} pixel accuracy "
+          f"{f32['pixel_acc']:.4f}; the reference's figure (the JAX "
+          f"package, BENCH_NOTES round 4) {JAX_CVAE_MIOU} / "
+          f"{JAX_CVAE_PIXACC}; bf16 vs f32 layouts of the first batch "
+          f"{agree:.5f} equal (TF32 off)", flush=True)
+    print(f"layout (a): {LAYOUT_FRAMES}-frame rollout of {LAYOUT_SCENES} "
+          f"scenes, per-step mIoU "
+          + " ".join(f"{v:.4f}" for v in out["rollout_per_step_miou"])
+          + f" (mean {out['rollout_mean_miou']:.4f}); the reference's "
+          f"(round 4) " + " ".join(f"{v:.3f}" for v in JAX_CVAE_CURVE)
+          + "; rates " + json.dumps(out["rates"]), flush=True)
+    check(abs(bf["miou"] - f32["miou"]) <= CVAE_DTYPE_MIOU_TOL
+          and agree >= CVAE_DTYPE_AGREEMENT,
+          f"layout (a): bf16 vs f32 mIoU {bf['miou']} / {f32['miou']}, "
+          f"layouts {agree} equal")
+    check(abs(f32["miou"] - JAX_CVAE_MIOU) <= CVAE_MIOU_TOL,
+          f"layout (a): f32 mIoU {f32['miou']} vs the JAX package's "
+          f"{JAX_CVAE_MIOU}")
+    check(len(out["rollout_per_step_miou"]) == LAYOUT_FRAMES
+          and all(0.0 <= v <= 1.0 for v in out["rollout_per_step_miou"]),
+          "layout (a): rollout fidelity")
+    return out
+
+
+class _RecordingState:
+    """Wraps a TrainState's ``apply_gradients`` to keep the gradients."""
+
+    def __init__(self, state):
+        self.state, self.grads = state, None
+        self.params, self.opt_state = state.params, state.opt_state
+
+    def apply_gradients(self, grads):
+        self.grads = {k: g.detach().float().cpu() for k, g in grads.items()}
+        self.state.apply_gradients(grads)
+        return self
+
+
+def run_card_cpu_step(torch, seed: int) -> dict:
+    """Step 1 of the K=3 exposure step from the snapshot, f32, on the card
+    and on the CPU with the same window batch and noise."""
+    from video_layout_generation_tpu_torch.data.synthetic import (
+        SyntheticTriplets)
+    from video_layout_generation_tpu_torch.io.checkpoint import (
+        CheckpointManager)
+    from video_layout_generation_tpu_torch.models.vae import (LayoutCVAE,
+                                                              latent_hw)
+    from video_layout_generation_tpu_torch.train.state import (
+        TrainState, make_optimizer)
+    from video_layout_generation_tpu_torch.train.vae_steps import (
+        draw_cvae_noise, make_cvae_multistep_train_step)
+    weights = CheckpointManager.restore_path(CVAE_NPZ)["params"]
+    ds = SyntheticTriplets(CARD_CPU_BATCH, (LAYOUT_HW, LAYOUT_HW),
+                           N_CLASSES, seed=seed + 31,
+                           n_frames=EXPOSURE_K + 2)
+    segs = torch.from_numpy(np.stack([ds[i]["segs"]
+                                      for i in range(CARD_CPU_BATCH)]))
+    noise = draw_cvae_noise(EXPOSURE_K, CARD_CPU_BATCH,
+                            (LAYOUT_HW, LAYOUT_HW), LAYOUT_LATENT, N_CLASSES,
+                            "prior", 0.0, torch.Generator().manual_seed(seed),
+                            "cpu")
+    runs = {}
+    for where in (DEVICE, "cpu"):
+        model = LayoutCVAE(N_CLASSES, LAYOUT_LATENT)
+        model.load_state_dict(weights, strict=True)
+        model.to(where)
+        state = _RecordingState(TrainState.create(
+            model, make_optimizer("adam", EXPOSURE_LR, 0.9)))
+        step = make_cvae_multistep_train_step(model, N_CLASSES,
+                                              k=EXPOSURE_K, device=where)
+        moved = {k: ([t.to(where) for t in v] if isinstance(v, list)
+                     else v.to(where)) for k, v in noise.items()}
+        _, metrics = step(state, segs, EXPOSURE_BETA, noise=moved)
+        runs[where] = ({k: float(v) for k, v in metrics.items()},
+                       state.grads)
+    (card_m, card_g), (cpu_m, cpu_g) = runs[DEVICE], runs["cpu"]
+    loss_rel = max(abs(card_m[k] - cpu_m[k]) / abs(cpu_m[k])
+                   for k in ("loss", "recon"))
+    lat_h, lat_w = latent_hw(LAYOUT_HW, LAYOUT_HW)
+    kl_per_element = abs(card_m["kl"] - cpu_m["kl"]) / (
+        lat_h * lat_w * LAYOUT_LATENT)
+    num = sum(float(((card_g[k] - cpu_g[k]) ** 2).sum()) for k in cpu_g)
+    den = sum(float((cpu_g[k] ** 2).sum()) for k in cpu_g)
+    grad_l2 = (num / den) ** 0.5
+    # the snapshot's encoder trunks are dead (ReLU 0 everywhere: a
+    # collapsed posterior and prior), so their gradients are exactly 0
+    zero = sorted(k for k in cpu_g if float(cpu_g[k].norm()) == 0.0)
+    worst = max(float((card_g[k] - cpu_g[k]).norm() / cpu_g[k].norm())
+                for k in cpu_g if k not in zero)
+    out = dict(metrics_card=card_m, metrics_cpu=cpu_m, loss_rel=loss_rel,
+               kl_err_per_element=kl_per_element, grad_l2=grad_l2,
+               worst_tensor_l2=worst, zero_gradients_cpu=len(zero),
+               zero_gradients_card=sum(
+                   float(card_g[k].norm()) == 0.0 for k in card_g),
+               tf32=bool(torch.backends.cudnn.allow_tf32))
+    print(f"layout (b): K={EXPOSURE_K} step 1 from the snapshot, f32, card "
+          f"vs CPU at b{CARD_CPU_BATCH} with the same batch and noise "
+          f"(cuDNN TF32 {'on' if out['tf32'] else 'off'}): "
+          + json.dumps(out), flush=True)
+    check(loss_rel <= CARD_CPU_LOSS_RTOL and grad_l2 <= CARD_CPU_GRAD_L2
+          and kl_per_element <= CARD_CPU_KL_PER_ELEMENT,
+          f"layout (b): card vs CPU loss {loss_rel}, KL {kl_per_element} "
+          f"an element, gradients {grad_l2} in L2")
+    return out
+
+
+def layout_cli_argv(path: str, family: str, size: int, batch: int,
+                    epochs: int, *extra) -> list:
+    return ["--family", family, "--size", str(size), "-bs", str(batch),
+            "-e", str(epochs), "--synthetic_train_size", str(LAYOUT_TRAIN),
+            "--synthetic_val_size", str(LAYOUT_CLI_VAL), "-p", path,
+            "--device", DEVICE, *extra]
+
+
+def epoch_rate(trainer) -> dict:
+    st = trainer.epoch_stats
+    return dict(samples_per_s=st["samples"] / st["wall_s"],
+                wall_s=st["wall_s"], steps=st["steps"])
+
+
+def run_layout_families(torch, kern, seed: int):
+    """Parts (a) to (d) of phase 13; returns its launches (none) and its
+    numbers."""
+    import shutil
+    import tempfile
+    from video_layout_generation_tpu_torch import layout_cli
+    from video_layout_generation_tpu_torch.data.synthetic import (
+        SyntheticTriplets)
+    from video_layout_generation_tpu_torch.evaluation import (
+        evaluate_layout_rollout)
+    from video_layout_generation_tpu_torch.train.layout_trainer import (
+        LayoutTrainer)
+
+    kern.reset_launch_counts()
+    t_phase = time.perf_counter()
+    stats = {"cvae": run_cvae_validation(torch, kern, seed)}
+    check_no_launches(kern, "(a)")
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="vlg_layout_")
+    try:
+        # -- (b) CVAE training through layout_cli, the K=3 leg ------------
+        cli_path = os.path.join(root, "cvae")
+        trainer = layout_cli.build_trainer(layout_cli_argv(
+            cli_path, "cvae", LAYOUT_HW, BATCH, 2, "--latent_dim",
+            str(LAYOUT_LATENT), "--seed", str(1024 + seed)))
+        fit_b = layout_cli.run(trainer)
+        stats["cvae_cli"] = dict(epoch_rate(trainer), miou=fit_b["miou"],
+                                 pixel_acc=fit_b["pixel_acc"])
+        check(trainer.global_step == 2 * LAYOUT_TRAIN // BATCH
+              and os.path.isdir(os.path.join(cli_path, "checkpoint", "002")),
+              f"layout (b): CLI run ended at step {trainer.global_step}")
+        saved_b = dict(val=fit_b, cfg=trainer.cfg)
+        del trainer
+        leg = LayoutTrainer(layout_cfg(
+            ckpt=CVAE_NPZ, lr=EXPOSURE_LR, multistep_k=EXPOSURE_K,
+            synthetic_train_size=LAYOUT_TRAIN,
+            synthetic_val_size=LAYOUT_CLI_VAL, epochs=1,
+            seed=1024 + seed), family="cvae", latent_dim=LAYOUT_LATENT,
+            beta_max=EXPOSURE_BETA)
+        check(leg.train_loader.loader.ds.n_frames == EXPOSURE_K + 2,
+              "layout (b): the K=3 leg's windows are not K+2 frames")
+        first = leg.train_epoch()
+        stats["exposure"] = dict(epoch_rate(leg), loss=first["loss"])
+        check(np.isfinite(first["loss"]), f"layout (b): K=3 loss {first}")
+        del leg
+        stats["card_cpu"] = run_card_cpu_step(torch, seed)
+        print(f"layout (b): CVAE through layout_cli ({LAYOUT_HW}^2, b{BATCH},"
+              f" 2 epochs of {LAYOUT_TRAIN}) " + json.dumps(
+                  stats["cvae_cli"]) + f"; the K={EXPOSURE_K} exposure leg "
+              f"(snapshot, lr {EXPOSURE_LR}, {EXPOSURE_K + 2}-frame windows)"
+              f" one epoch " + json.dumps(stats["exposure"]), flush=True)
+        check_no_launches(kern, "(b)")
+
+        # -- (c) ConvLSTM config 2 and VAE config 1 -----------------------
+        # two epochs each: the second's rate is the steady one (the first
+        # renders the synthetic samples and meets cuDNN's shapes first)
+        lstm = layout_cli.build_trainer(layout_cli_argv(
+            os.path.join(root, "convlstm"), "convlstm", LSTM_HW, BATCH, 2,
+            "--hidden", str(LSTM_HIDDEN), "--rollout_frames",
+            str(LSTM_FRAMES), "--seed", str(1024 + seed)))
+        fit_c = layout_cli.run(lstm)
+        fid = evaluate_layout_rollout(
+            lstm, SyntheticTriplets(size=LAYOUT_SCENES,
+                                    image_hw=(LSTM_HW, LSTM_HW),
+                                    seed=lstm.cfg.seed + 7),
+            range(LAYOUT_SCENES), n_frames=LSTM_FRAMES)
+        stats["convlstm"] = dict(epoch_rate(lstm), miou=fit_c["miou"],
+                                 rollout_per_step_miou=[
+                                     float(v) for v in fid["per_step_miou"]])
+        del lstm
+        vae = layout_cli.build_trainer(layout_cli_argv(
+            os.path.join(root, "vae"), "vae", VAE_HW, VAE_BATCH, 2,
+            "--seed", str(1024 + seed)))
+        fit_v = layout_cli.run(vae)
+        stats["vae"] = dict(epoch_rate(vae), miou=fit_v["miou"])
+        del vae
+        print(f"layout (c): ConvLSTM config 2 ({LSTM_HW}^2, hidden "
+              f"{LSTM_HIDDEN}, b{BATCH}), epoch 2 "
+              + json.dumps(stats["convlstm"])
+              + f"; VAE config 1 ({VAE_HW}^2, b{VAE_BATCH}), epoch 2 "
+              + json.dumps(stats["vae"]), flush=True)
+        check_no_launches(kern, "(c)")
+
+        # -- (d) resume (b) -----------------------------------------------
+        from video_layout_generation_tpu_torch.io.checkpoint import (
+            CheckpointManager)
+        saved = CheckpointManager.restore_path(
+            os.path.join(cli_path, "checkpoint", "latest"))
+        resumed = LayoutTrainer(saved_b["cfg"].replace(resume="latest",
+                                                       epochs=3),
+                                family="cvae", latent_dim=LAYOUT_LATENT)
+        for name, t in resumed.model.state_dict().items():
+            check(torch.equal(t.cpu(), saved["params"][name]),
+                  f"layout (d): parameter {name} differs")
+        for key in ("mu", "nu"):
+            for name, t in resumed.state.opt_state[key].items():
+                check(torch.equal(t.cpu(), saved["opt_state"][key][name]),
+                      f"layout (d): moment {key} {name} differs")
+        check(resumed.global_step == resumed.state.step == saved["step"]
+              and resumed.epoch == 2
+              and resumed.state.opt_state["count"]
+              == saved["opt_state"]["count"],
+              "layout (d): step / epoch / count differ from the checkpoint")
+        val_d = resumed.validate()
+        check(val_d["miou"] == saved_b["val"]["miou"]
+              and val_d["pixel_acc"] == saved_b["val"]["pixel_acc"],
+              f"layout (d): validation {val_d['miou']} after the resume, "
+              f"{saved_b['val']['miou']} before")
+        resumed.fit()
+        check(resumed.epoch == 3, "layout (d): epoch 3 did not train")
+        print(f"layout (d): resumed at epoch 2 step {saved['step']}: "
+              f"parameters, moments, step and the first validation (mIoU "
+              f"{val_d['miou']:.6f}) equal to the checkpoint's bits; epoch 3 "
+              f"trained", flush=True)
+        del resumed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = check_no_launches(kern, "(d)")
+    torch.cuda.empty_cache()
+    stats["phase_s"] = time.perf_counter() - t_phase
+    r = stats["cvae"]["rates"]
+    print(f"layout timing, card {card_line()}: CVAE rollout frames/s at "
+          f"b{BATCH} {r['fps']:.1f} ({LAYOUT_FRAMES} frames), b1 latency "
+          f"{r['b1_latency_ms']:.1f} ms, busy {r['busy_ms']:.1f} ms of "
+          f"{r['wall_ms']:.1f} (idle share {r['idle']:.3f}), peak "
+          f"{r['peak_gib']:.2f} GiB; train samples/s: CVAE CLI "
+          f"{stats['cvae_cli']['samples_per_s']:.1f}, K={EXPOSURE_K} leg "
+          f"{stats['exposure']['samples_per_s']:.1f}, ConvLSTM "
+          f"{stats['convlstm']['samples_per_s']:.1f}, VAE "
+          f"{stats['vae']['samples_per_s']:.1f}; phase 13 took "
+          f"{stats['phase_s']:.1f} s; device ms by group "
+          + json.dumps(r["groups"]), flush=True)
     return launches, stats
 
 
@@ -3091,6 +3518,8 @@ def main(argv=None) -> int:
     by_path["train CLI"], cli_stats = run_train_cli(torch, kern, args.seed)
     by_path["rollout-fidelity training"], rollout_stats = \
         run_rollout_training(torch, kern, args.seed)
+    by_path["layout families"], layout_stats = run_layout_families(
+        torch, kern, args.seed)
     expected = {"no-edge rollout": LAUNCHES_PER_ROLLOUT,
                 "validation": LAUNCHES_PER_EVAL_STEP,
                 "edge rollout": LAUNCHES_PER_EDGE_ROLLOUT,
@@ -3100,7 +3529,8 @@ def main(argv=None) -> int:
                 "GridNet train": LAUNCHES_PER_GRIDNET_TRAIN_STEP,
                 "GridNet GAN train": LAUNCHES_PER_GRIDNET_GAN_STEP,
                 "train CLI": LAUNCHES_PER_CLI_RUN,
-                "rollout-fidelity training": LAUNCHES_PER_ROLLOUT_STEP}
+                "rollout-fidelity training": LAUNCHES_PER_ROLLOUT_STEP,
+                "layout families": NO_LAUNCHES}
     for path, counts in by_path.items():
         for name, per_call in expected[path].items():
             check(per_call == 0 or counts[name] > 0,
@@ -3158,6 +3588,12 @@ def main(argv=None) -> int:
         device_ms_by_group={arch: st["groups"]
                             for arch, st in grid_stats.items()})),
         flush=True)
+    print(f"layout families at b{BATCH}, card {card}: " + json.dumps(
+        {k: v for k, v in layout_stats.items() if k != "cvae"}
+        | {"cvae_validation": {k: v for k, v in layout_stats["cvae"].items()
+                               if k != "rates"},
+           "cvae_rollout": {k: v for k, v in layout_stats["cvae"][
+               "rates"].items() if k != "groups"}}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

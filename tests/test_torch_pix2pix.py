@@ -252,7 +252,8 @@ def test_factories_and_registry():
     with pytest.raises(NotImplementedError, match="Discriminator model"):
         tmodels.define_D(9, 4, "global")
     for name in ("ResnetGenerator", "UnetGenerator", "NLayerDiscriminator",
-                 "PixelDiscriminator", "GridNet"):
+                 "PixelDiscriminator", "GridNet", "LayoutVAE", "LayoutCVAE",
+                 "ConvLSTMLayoutPredictor"):
         assert tmodels.get_model_cls(name) is getattr(tmodels, name)
     with pytest.raises(KeyError, match="unknown model"):
-        tmodels.get_model_cls("LayoutVAE")
+        tmodels.get_model_cls("LayoutGAN")

@@ -1,7 +1,8 @@
 """Rollout fidelity (the JAX package's ``evaluation/sequence.py``): per-step
 mIoU and pixel accuracy of the autoregressive rollout against ground-truth
-future layouts. ``evaluate_layout_rollout`` (the layout families) comes with
-ROADMAP item 7."""
+future layouts, for the main ``Trainer``'s rollout
+(``evaluate_trainer_rollout``) and for the layout families'
+(``evaluate_layout_rollout``)."""
 
 from __future__ import annotations
 
@@ -70,3 +71,42 @@ def evaluate_trainer_rollout(trainer, dataset, indices: Sequence[int],
                                              save=False)
     return rollout_fidelity(pred_segs, np.stack(gts),
                             trainer.cfg.n_classes)
+
+
+def evaluate_layout_rollout(trainer, dataset, indices: Sequence[int],
+                            n_frames: int) -> Dict[str, np.ndarray]:
+    """Rollout fidelity of a ``LayoutTrainer``'s autoregressive family:
+    continue from each sample's first two ground-truth layouts for
+    ``n_frames`` and score every step against the ground-truth future. The
+    CVAE samples its learned prior each step (noise from a generator on the
+    trainer's device seeded with ``cfg.seed + 2``), the ConvLSTM feeds its
+    argmax back; the VAE family raises ``ValueError``."""
+    from ..models.vae import make_cvae_rollout
+    from ..ops.one_hot import seg_one_hot
+
+    if trainer.family not in ("cvae", "convlstm"):
+        raise ValueError(
+            f"rollout fidelity needs an autoregressive family "
+            f"(cvae/convlstm), got {trainer.family!r}")
+    segs1, segs2, gts = [], [], []
+    for i in indices:
+        _, segs = dataset.sequence(int(i), n_frames + 2)
+        if segs.shape[0] < n_frames + 2:
+            raise ValueError(
+                f"dataset.sequence returned {segs.shape[0]} frames; "
+                f"need {n_frames + 2} (2 seeds + {n_frames} futures)")
+        segs1.append(segs[0])
+        segs2.append(segs[1])
+        gts.append(segs[2:])
+    dev = trainer.device
+    s1 = torch.from_numpy(np.stack(segs1)).to(dev).long()
+    s2 = torch.from_numpy(np.stack(segs2)).to(dev).long()
+    n_cls = trainer.cfg.n_classes
+    if trainer.family == "cvae":
+        gen = torch.Generator(device=dev).manual_seed(trainer.cfg.seed + 2)
+        pred = make_cvae_rollout(trainer.model, n_frames, n_cls)(s1, s2, gen)
+    else:
+        with torch.inference_mode():
+            pred = trainer.model.rollout(
+                seg_one_hot(torch.stack([s1, s2], 1), n_cls), n_frames)
+    return rollout_fidelity(pred, np.stack(gts), n_cls)

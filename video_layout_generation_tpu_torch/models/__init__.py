@@ -3,6 +3,7 @@
 from .blocks import (CoordConv, CoordDownSamplingBlock, CoordLateralBlock,
                      CoordUpSamplingBlock, DownSamplingBlock, LateralBlock,
                      PReLU, UpSamplingBlock)
+from .convlstm import ConvLSTMCell, ConvLSTMLayoutPredictor
 from .discriminators import NLayerDiscriminator, PixelDiscriminator
 from .factories import define_D, define_G
 from .gridnet import CoordGridNet, GridNet
@@ -11,6 +12,7 @@ from .init import get_initializer
 from .norms import BatchNorm, InstanceNorm, get_norm_layer
 from .resnet_gen import ResnetBlock, ResnetGenerator
 from .unet_gen import UnetGenerator, UnetSkipBlock
+from .vae import LayoutCVAE, LayoutVAE, make_cvae_rollout
 
 _REGISTRY = {
     "GridNet": GridNet,
@@ -19,6 +21,9 @@ _REGISTRY = {
     "UnetGenerator": UnetGenerator,
     "NLayerDiscriminator": NLayerDiscriminator,
     "PixelDiscriminator": PixelDiscriminator,
+    "LayoutVAE": LayoutVAE,
+    "LayoutCVAE": LayoutCVAE,
+    "ConvLSTMLayoutPredictor": ConvLSTMLayoutPredictor,
 }
 
 
@@ -33,4 +38,4 @@ __all__ = list(_REGISTRY) + [
     "UpSamplingBlock", "CoordConv", "CoordLateralBlock",
     "CoordDownSamplingBlock", "CoordUpSamplingBlock", "define_G", "define_D",
     "get_initializer", "get_norm_layer", "InstanceNorm", "BatchNorm",
-    "ResnetBlock", "UnetSkipBlock"]
+    "ResnetBlock", "UnetSkipBlock", "make_cvae_rollout", "ConvLSTMCell"]

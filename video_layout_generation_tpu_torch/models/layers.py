@@ -1,4 +1,5 @@
-"""Convolutions and paddings of the pix2pix nets on NHWC activations.
+"""Convolutions and paddings of the pix2pix nets and the layout families
+on NHWC activations.
 
 The JAX package computes these with ``nn.Conv`` / ``nn.ConvTranspose``
 outside any hand-written kernel, so here they are ``F.conv2d`` /
@@ -48,9 +49,16 @@ class Conv(nn.Module):
 
 
 class ConvTranspose(nn.Module):
-    """flax ``nn.ConvTranspose(features, (k, k), strides=(2, 2))``: with
-    k = 3 and flax padding ((1, 2), (1, 2)) it is torch's ``padding=1,
-    output_padding=1``; with k = 4 and flax SAME it is ``padding=1``.
+    """flax ``nn.ConvTranspose(features, (k, k), strides=(2, 2))`` in its
+    three paddings:
+
+    - k = 3, flax padding ((1, 2), (1, 2)): torch's ``padding=1,
+      output_padding=1``;
+    - k = 4, flax ``"SAME"``: ``padding=1``;
+    - k = 3, flax ``"SAME"`` (``crop=1``): flax pads the dilated input
+      (2, 1), where torch's ``padding=1, output_padding=1`` pads (1, 2), so
+      it is ``padding=0`` with the last row and column of the 2H+1 x 2W+1
+      result cropped away.
 
     flax applies the kernel without the spatial flip that torch's
     transposed conv implies, so the kernel is flipped on its way to the
@@ -60,10 +68,11 @@ class ConvTranspose(nn.Module):
     def __init__(self, cin: int, cout: int, k: int, stride: int = 2,
                  padding: int = 1, output_padding: int = 0,
                  use_bias: bool = True,
-                 kernel_init: Optional[Callable] = None, generator=None):
+                 kernel_init: Optional[Callable] = None, generator=None,
+                 crop: int = 0):
         super().__init__()
         self.stride, self.padding = stride, padding
-        self.output_padding = output_padding
+        self.output_padding, self.crop = output_padding, crop
         shape = (k, k, cin, cout)
         if kernel_init is None:
             value = torch.randn(shape, generator=generator) / (
@@ -81,6 +90,8 @@ class ConvTranspose(nn.Module):
         y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, b,
                                stride=self.stride, padding=self.padding,
                                output_padding=self.output_padding)
+        if self.crop:
+            y = y[:, :, :y.shape[2] - self.crop, :y.shape[3] - self.crop]
         return y.permute(0, 2, 3, 1)
 
 
