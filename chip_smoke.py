@@ -141,8 +141,34 @@ Phases:
      validation equal to the checkpoint's bits, then epoch 3. Printed:
      scores, the per-step rollout curve beside the JAX package's, train
      samples/s of each, and the phase's time.
+ 14. data parallelism, the feeder thread and the native decoder: (a)
+     phase 11's fit loop (CoordGridNet, 64 synthetic samples, b16) with and
+     without ``--put_thread`` in the order off, on, on, off: one epoch's
+     batches equal by sha256, one copy to the card from pinned memory a
+     batch and none from pageable memory in a traced epoch of each, the
+     rate, loader wait and compute of each leg; (b) in a process of its own
+     with the ``torchrun`` variables, three train steps and a validation of
+     the CLI's Trainer inside an NCCL group of one rank equal the same run
+     outside a group bit for bit (cuDNN deterministic in both), and the
+     gradient all-reduce's device ms and bytes a step; (c) two ranks on the
+     one card over Gloo with CUDA tensors (NCCL refuses two ranks on one
+     device), each on 8 rows of a global b16: two CoordGridNet train steps
+     (93 A and 15 B a step a rank), a VAE step with class weights, free
+     bits and capacity, a CVAE step and a ``validate``, against this
+     process on the concatenated batches: loss terms within 1e-5
+     relative, bf16 gradients within 1e-2 in L2 (the slopes as one
+     tensor; the f32 layout gradients too: cuDNN picks other algorithms at
+     b8), per-class IoU equal;
+     (d) ``LayoutPredictor(mesh=make_mesh())`` equals the predictor without
+     a mesh bit for bit, and its overhead a request; (e) the native PNG
+     decoder, built from ``native/vlg_loader.cpp``, against cv2 / PIL on 8
+     triplets of 256x512 PNGs (ids bit for bit, RGB within 2.5/255) and
+     its decode ms a triplet both ways, or, where it does not build (no
+     libdeflate headers), the compiler's message and the fallback's decode
+     ms; then one ``--put_thread`` CLI epoch of ``CityscapesTriplets``
+     over them with the decoder the dataset chose.
 
-The launch counters are set to 0 just before each of the phases 3-13 and
+The launch counters are set to 0 just before each of the phases 3-14 and
 read just after it; a kernel of a phase's path that was launched no time
 fails the run. Any failure exits non-zero. The line before the last is the
 ``kernels`` JSON object; the last line is ``{"ok": true, "device": {...}}``. With no CUDA
@@ -271,6 +297,7 @@ ROUTES = {
 
 
 TRACE_TRIES = 6           # profiler traces taken before giving up on one
+COPY_TRACE_TRIES = 3      # traces taken for a complete set of copy records
 EVENT_TIMED = []          # one entry for each timing taken with CUDA events
 
 
@@ -3435,6 +3462,685 @@ def run_layout_families(torch, kern, seed: int):
     return launches, stats
 
 
+# ---- phase 14: data parallelism, the feeder thread, the native decoder ------
+#
+# (a) ``--put_thread`` on phase 11's fit loop; (b) the train loop inside an
+# NCCL group of one rank against the same loop outside a group; (c) two
+# ranks on the one card over Gloo with CUDA tensors against one process on
+# the concatenated batches; (d) ``LayoutPredictor`` on a mesh of one device;
+# (e) the native PNG decoder against cv2 / PIL and a Cityscapes epoch
+# through it. (b) and (c) run in processes of their own, started here with
+# the ``torchrun`` variables and waited for.
+
+DP_TRAIN_STEPS = 2
+DP_LOSS_RTOL = 1e-5      # loss terms, two ranks vs one process (bf16 nets)
+# each gradient in L2 (GridNet's slopes as one tensor): bf16 nets, and the
+# layout families' f32 nets, whose cuDNN convolutions take other algorithms
+# at b8 than at b16 (seen: 2.3e-3 and 1.1e-3)
+DP_GRAD_L2 = 1e-2
+DP_TIMEOUT_S = 400
+NCCL_TRAIN = 48          # (b): three train steps of b16, one validation
+NATIVE_FRAMES = 15       # (e): one snippet of 15 frames holds 8 triplets
+NATIVE_HW = (256, 512)   # Cityscapes' frames as the repo's tree holds them
+RGB_ROUNDING = 2.5 / 255   # tests/test_native_loader.py: bilinear RGB
+
+
+def batch_hashes(loader, epoch: int) -> list:
+    """sha256 of every batch of one epoch of ``loader``, in order."""
+    import hashlib
+    loader.set_epoch(epoch)
+    out = []
+    for batch in loader:
+        h = hashlib.sha256()
+        for k in sorted(batch):
+            h.update(k.encode())
+            h.update(batch[k].cpu().numpy().tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def traced_copies(torch, trainer, epoch: int, steps: int,
+                  label: str) -> dict:
+    """``traced_epoch`` of a loader that must copy each of its ``steps``
+    batches to the card once, from pinned memory, and never from pageable
+    memory. The runtime's ``cudaMemcpyAsync`` calls count the copies
+    (``h2d``); every source buffer is checked to be pinned as the loader
+    fills it; and no trace may hold a pageable copy record. The trace's
+    pinned copy records are not all returned on the H100: over 48 traced
+    epochs of 4 batches, 2, 3 or 4 records came back while the runtime saw
+    4 copy calls every time and every source was pinned. So traces are
+    taken until one holds every record; after ``COPY_TRACE_TRIES`` the one
+    with the most records is kept (``records_complete`` False). The drops
+    come in runs (six traces in a row once), so more tries buy little and
+    cost phase 14 seconds."""
+    from video_layout_generation_tpu_torch.data import pipeline
+    fill = pipeline._Slot.fill
+    sources = []
+
+    def checked_fill(slot, host_batch):
+        fill(slot, host_batch)
+        sources.append(all(b.is_pinned() for b in slot.pinned.values()))
+
+    pipeline._Slot.fill = checked_fill
+    kept = None
+    try:
+        for attempt in range(COPY_TRACE_TRIES):
+            retry_pause(attempt)
+            sources.clear()
+            tr = traced_epoch(torch, trainer, epoch + attempt,
+                              LAUNCHES_PER_GRIDNET_TRAIN_STEP, label)
+            check(tr["pageable"]["n"] == 0 and tr["pinned"]["n"] <= steps
+                  and sources == [True] * steps,
+                  f"{label}: records of copies to the card from pinned "
+                  f"memory {tr['pinned']}, from pageable memory "
+                  f"{tr['pageable']}, sources pinned {sources}; expected "
+                  f"{steps} batches, all from pinned memory")
+            # a dropped device-to-host record raises h2d: take it again
+            if tr["h2d"] == steps and (kept is None or tr["pinned"]["n"]
+                                       > kept["pinned"]["n"]):
+                kept = tr
+            if kept is not None and kept["pinned"]["n"] == steps:
+                break
+            print(f"{label}: {tr['h2d']} copies to the card from the "
+                  f"runtime's calls, {tr['pinned']['n']} of {steps} pinned "
+                  f"copy records came back; taking the trace again",
+                  flush=True)
+    finally:
+        pipeline._Slot.fill = fill
+    check(kept is not None and kept["pinned"]["n"] > 0,
+          f"{label}: no trace counted {steps} copies to the card in "
+          f"{COPY_TRACE_TRIES} tries (last {tr})")
+    tr = kept
+    tr["records_complete"] = tr["pinned"]["n"] == steps
+    return tr
+
+
+def run_put_thread(torch, kern, seed: int) -> dict:
+    """(a): the same batches with and without the feeder thread, one pinned
+    copy a batch, and the fit loop's rate in the order off, on, on, off."""
+    import shutil
+    import tempfile
+    from video_layout_generation_tpu_torch import main as cli
+    from video_layout_generation_tpu_torch.config import config_from_args
+    root = tempfile.mkdtemp(prefix="vlg_put_thread_")
+    try:
+        trainer = cli.build_trainer(config_from_args(cli_argv(
+            os.path.join(root, "exp"), "-e", "1", "--put_thread",
+            "--seed", str(1024 + seed))))
+        loader = trainer.train_loader
+        steps = len(loader)
+        check(loader.put_thread and trainer.val_loader.put_thread,
+              "put_thread: the loaders do not run the feeder thread")
+        hashes = {}
+        for flag in (False, True):
+            loader.put_thread = flag
+            hashes[flag] = batch_hashes(loader, 7)
+        check(len(hashes[True]) == steps and hashes[True] == hashes[False],
+              f"put_thread: the batches differ from the thread-less "
+              f"loader's ({hashes})")
+        watch_steps(kern, trainer, {}, LAUNCHES_PER_GRIDNET_TRAIN_STEP)
+        trainer.set_epoch(0)            # warm-up: cuDNN's shapes, the data
+        trainer.train()
+        legs = []
+        for i, flag in enumerate((False, True, True, False)):
+            loader.put_thread = flag
+            leg = timed_epoch(torch, trainer, 1 + i)
+            leg.update(put_thread=flag, comp_s=trainer.epoch_stats["comp_s"],
+                       loader_wait_ms=leg["load_s"] / steps * 1e3)
+            legs.append(leg)
+        copies = {}
+        for flag in (False, True):
+            loader.put_thread = flag
+            copies[flag] = traced_copies(torch, trainer, 20 + 10 * flag,
+                                         steps, f"put_thread {flag}")
+        del trainer
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rate = {flag: np.mean([leg["samples_per_s"] for leg in legs
+                           if leg["put_thread"] == flag])
+            for flag in (False, True)}
+    for leg in legs:
+        print(f"put_thread (a): leg put_thread={leg['put_thread']}: "
+              f"{leg['samples_per_s']:.1f} samples/s at b{BATCH}, epoch "
+              f"wall {leg['wall_s']:.3f} s, loader wait "
+              f"{leg['loader_wait_ms']:.2f} ms a step, compute "
+              f"{leg['comp_s']:.3f} s", flush=True)
+    print(f"put_thread (a): {steps} batches of one epoch equal by sha256 "
+          f"with and without the thread; copies to the card a traced epoch "
+          f"without / with the thread: runtime h2d calls "
+          f"{copies[False]['h2d']} / {copies[True]['h2d']}, every source "
+          f"pinned, pinned records {copies[False]['pinned']} / "
+          f"{copies[True]['pinned']} (complete "
+          f"{copies[False]['records_complete']} / "
+          f"{copies[True]['records_complete']}), pageable "
+          f"{copies[False]['pageable']} / {copies[True]['pageable']}; mean "
+          f"samples/s "
+          f"off {rate[False]:.1f}, on {rate[True]:.1f}", flush=True)
+    return dict(legs=legs, samples_per_s_off=rate[False],
+                samples_per_s_on=rate[True],
+                busy_ms_step={str(f): copies[f]["busy_ms_step"]
+                              for f in copies})
+
+
+def launch_env(rank: int, world: int, port: int) -> dict:
+    """The variables ``torchrun`` sets, for a process on this one card."""
+    return dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                PYTHONUNBUFFERED="1")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(world: int, call: str, label: str) -> list:
+    """Start ``world`` processes that run ``chip_smoke.<call>`` with the
+    launch variables, wait for every one (killing them all on a failure or
+    at ``DP_TIMEOUT_S``), print their output and return each one's result
+    (a ``torch.save`` file)."""
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = tempfile.mkdtemp(prefix="vlg_ranks_")
+    port = free_port()
+    procs = []
+    try:
+        for r in range(world):
+            code = (f"import sys, chip_smoke; "
+                    f"sys.exit(chip_smoke.{call}({out_dir!r}))")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code], cwd=here,
+                env=launch_env(r, world, port), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        deadline = time.time() + DP_TIMEOUT_S
+        outs = []
+        for p in procs:
+            out, _ = p.communicate(timeout=max(deadline - time.time(), 1))
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith(("rank", "Traceback", "  ", "SmokeFailure",
+                                "RuntimeError", "AssertionError")) \
+                    or "Error" in line:
+                print(f"{label} rank {r}: {line}", flush=True)
+        check(p.returncode == 0, f"{label}: rank {r} exited "
+              f"{p.returncode}:\n{out[-4000:]}")
+    import torch
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def _deterministic(torch):
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def nccl_fit_leg(torch, path: str, seed: int) -> dict:
+    """Three train steps and one validation of the CLI's Trainer (phase
+    11's configuration) from a fixed seed: parameters and validation."""
+    from video_layout_generation_tpu_torch.config import config_from_args
+    from video_layout_generation_tpu_torch.train.trainer import Trainer
+    trainer = Trainer(config_from_args(cli_argv(
+        path, "-e", "1", "--synthetic_train_size", str(NCCL_TRAIN),
+        "--seed", str(1024 + seed))))
+    val = trainer.fit()
+    out = dict(params={k: v.detach().cpu().clone()
+                       for k, v in trainer.model.state_dict().items()},
+               loss=val["loss"], iou=np.asarray(val["per_class_iou"]),
+               steps=trainer.global_step)
+    out["trainer"] = trainer
+    return out
+
+
+def nccl_world1_worker(out_dir: str, seed: int = 0) -> int:
+    """(b), in a process of its own: the fit leg outside a group, then
+    inside an NCCL group of one rank, and one more step in the group under
+    the profiler (the all-reduce's device time and bytes)."""
+    import shutil
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from video_layout_generation_tpu_torch.parallel import (
+        in_group, maybe_initialize_distributed)
+    _deterministic(torch)
+    legs = {}
+    try:
+        legs["outside"] = nccl_fit_leg(torch, os.path.join(out_dir, "a"),
+                                       seed)
+        legs["outside"].pop("trainer")
+        check(maybe_initialize_distributed("cuda") and in_group()
+              and torch.distributed.get_backend() == "nccl",
+              "NCCL: no group")
+        legs["inside"] = nccl_fit_leg(torch, os.path.join(out_dir, "b"),
+                                      seed)
+        trainer = legs["inside"].pop("trainer")
+        batch = next(iter(trainer.train_loader))
+        n_params = sum(p.numel() for p in trainer.model_state.params.values())
+        for attempt in range(TRACE_TRIES):
+            retry_pause(attempt)
+            torch.cuda.synchronize()
+            with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+                trainer._train_step(trainer.state, batch)
+                torch.cuda.synchronize()
+            rows = [ev for ev in prof.key_averages() if on_device(torch, ev)]
+            a = sum(ev.count for ev in rows if "conv3x3_mma_kernel" in ev.key)
+            if a == LAUNCHES_PER_GRIDNET_TRAIN_STEP["prelu_conv3x3"]:
+                break
+        else:
+            raise SmokeFailure("NCCL: no complete trace of a step")
+        # NCCL may run a one-rank all-reduce as a copy, or not at all
+        nccl = [ev for ev in rows if "nccl" in ev.key.lower()]
+        legs["allreduce"] = dict(
+            ms=sum(ev.self_device_time_total for ev in nccl) / 1e3,
+            count=sum(ev.count for ev in nccl),
+            bytes=4 * (n_params + 4), kernels=[ev.key for ev in nccl])
+        torch.distributed.destroy_process_group()
+        torch.save(legs, os.path.join(out_dir, "rank0.pt"))
+    finally:
+        for d in ("a", "b"):
+            shutil.rmtree(os.path.join(out_dir, d), ignore_errors=True)
+    return 0
+
+
+def run_nccl_world1(torch) -> dict:
+    """(b): the group's collectives at world size 1 change no bit."""
+    legs = run_ranks(1, "nccl_world1_worker", "NCCL world 1")[0]
+    a, b = legs["outside"], legs["inside"]
+    check(a["steps"] == b["steps"] == NCCL_TRAIN // BATCH,
+          f"NCCL: steps {a['steps']}, {b['steps']}")
+    differ = [k for k in a["params"]
+              if not torch.equal(a["params"][k], b["params"][k])]
+    check(not differ, f"NCCL world 1: {len(differ)} parameters differ from "
+          f"the run outside a group, first {differ[:3]}")
+    check(a["loss"] == b["loss"]
+          and np.array_equal(a["iou"], b["iou"], equal_nan=True),
+          f"NCCL world 1: validation {b['loss']!r} vs {a['loss']!r}")
+    ar = legs["allreduce"]
+    print(f"NCCL world 1 (b): {a['steps']} train steps and one validation "
+          f"inside an NCCL group of one rank equal the run outside a group "
+          f"bit for bit ({len(a['params'])} parameters, validation loss "
+          f"{a['loss']!r}, per-class IoU); the gradient all-reduce "
+          f"{ar['ms']:.3f} device ms a step ({ar['count']} kernels "
+          f"{sorted(set(ar['kernels']))}), {ar['bytes']} bytes", flush=True)
+    return dict(allreduce_ms=ar["ms"], allreduce_bytes=ar["bytes"])
+
+
+# --- (c): two ranks on one card ----------------------------------------------
+
+def rows_of(x):
+    """This rank's rows of a global batch (all of it outside a group)."""
+    from video_layout_generation_tpu_torch.parallel.mesh import (
+        local_rows, process_count, process_index)
+    return local_rows(x, process_index(), process_count())
+
+
+def dp_coord_train(torch, kern, seed: int) -> dict:
+    """``DP_TRAIN_STEPS`` CoordGridNet train steps at the global b16 (HNED,
+    VGG19, a per-example flip): each step's terms and launches, step 1's
+    gradients."""
+    from video_layout_generation_tpu_torch.train.steps import make_train_step
+    weights = edge_mode_weights(seed)
+    net = build_gridnet(torch, "CoordGridNet",
+                        gridnet_train_weights(seed)["CoordGridNet"])
+    hned, combined = frozen_nets(torch, weights)
+    step = make_train_step(net, hned, combined, flip_mode="per_example",
+                           device=DEVICE,
+                           generator=torch.Generator().manual_seed(seed + 7))
+    state = recording_state(net, adam())
+    out = dict(metrics=[], launches=[])
+    for s in range(DP_TRAIN_STEPS):
+        kern.reset_launch_counts()
+        state, m = step(state, {"packed6": rows_of(
+            make_packed_batch(BATCH, seed + s)["packed6"])})
+        torch.cuda.synchronize()
+        out["launches"].append(kern.launch_counts())
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        if s == 0:
+            out["grads"] = {k: g.float().cpu()
+                            for k, g in slopes_as_one(
+                                torch, state.last_grads).items()}
+    return out
+
+
+def dp_layout_steps(torch, seed: int) -> dict:
+    """One VAE step (64x64, class weights, free bits, capacity) and one
+    CVAE step (256x256, latent 64), f32 on the card: terms and gradients."""
+    from video_layout_generation_tpu_torch.models.vae import (LayoutCVAE,
+                                                              LayoutVAE)
+    from video_layout_generation_tpu_torch.train.vae_steps import (
+        make_cvae_train_step, make_vae_train_step)
+    rng = np.random.default_rng(seed + 40)
+    out = {}
+    vae = LayoutVAE(N_CLASSES, 32, generator=torch.Generator().manual_seed(
+        seed + 41)).to(DEVICE)
+    ids = torch.from_numpy(rng.integers(0, N_CLASSES, (BATCH, 8, 8)).repeat(
+        8, 1).repeat(8, 2))
+    ids[BATCH // 2:] = 0                 # rank 1's rows all background
+    step = make_vae_train_step(
+        vae, N_CLASSES, free_bits=0.05, use_capacity=True,
+        class_weights=[0.25] + [1.0] * (N_CLASSES - 1), device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(seed + 42))
+    state = recording_state(vae, adam())
+    _, m = step(state, rows_of(ids), 0.5, 2.0)
+    out["vae"] = dict(metrics={k: float(v) for k, v in m.items()},
+                      grads={k: g.cpu() for k, g in state.last_grads.items()})
+    cvae = LayoutCVAE(N_CLASSES, 64, generator=torch.Generator().manual_seed(
+        seed + 43)).to(DEVICE)
+    win = torch.from_numpy(rng.integers(0, N_CLASSES, (BATCH, 3, 32, 32))
+                           .repeat(8, 2).repeat(8, 3))
+    step = make_cvae_train_step(
+        cvae, N_CLASSES, device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(seed + 44))
+    state = recording_state(cvae, adam())
+    _, m = step(state, rows_of(win[:, :2]), rows_of(win[:, 2]), 0.7)
+    out["cvae"] = dict(metrics={k: float(v) for k, v in m.items()},
+                       grads={k: g.cpu() for k, g in state.last_grads.items()})
+    return out
+
+
+def dp_validation(torch, kern, seed: int) -> dict:
+    """``validate`` of the edge-mode eval step over one global batch."""
+    from video_layout_generation_tpu_torch.io.weights import params_from_flax
+    from video_layout_generation_tpu_torch.models import GridNet
+    from video_layout_generation_tpu_torch.train.steps import make_eval_step
+    from video_layout_generation_tpu_torch.train.trainer import validate
+    weights = edge_mode_weights(seed)
+    net = GridNet(n_channels=10, filters_level=FILTERS, dtype=torch.bfloat16)
+    net.load_state_dict(params_from_flax(weights["gridnet"]), strict=True)
+    hned, combined = frozen_nets(torch, weights)
+    step = make_eval_step(net, hned, combined.eval_variant(),
+                          n_classes=N_CLASSES, device=DEVICE)
+    kern.reset_launch_counts()
+    val = validate(step, [{"packed6": rows_of(
+        make_packed_batch(BATCH, seed + 50)["packed6"])}], N_CLASSES)
+    return dict(loss=val["loss"], iou=np.asarray(val["per_class_iou"]),
+                miou=val["miou"], launches=kern.launch_counts())
+
+
+def dp_scenarios(torch, kern, seed: int) -> dict:
+    return dict(train=dp_coord_train(torch, kern, seed),
+                layout=dp_layout_steps(torch, seed),
+                validation=dp_validation(torch, kern, seed))
+
+
+def dp_rank_worker(out_dir: str, seed: int = 0) -> int:
+    """(c), in a process of its own: one rank of a Gloo group on the card."""
+    import torch
+    from video_layout_generation_tpu_torch.ops import kernels as kern
+    from video_layout_generation_tpu_torch.parallel import (
+        maybe_initialize_distributed, process_index)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(maybe_initialize_distributed("cuda", backend="gloo"),
+          "Gloo: no group")
+    out = dp_scenarios(torch, kern, seed)
+    print(f"rank {process_index()}: launches a train step "
+          f"{out['train']['launches']}, a validation batch "
+          f"{out['validation']['launches']}", flush=True)
+    torch.save(out, os.path.join(out_dir, f"rank{process_index()}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def run_two_ranks(torch, kern, seed: int) -> dict:
+    """(c): two Gloo ranks with CUDA tensors on the card against this
+    process on the concatenated batches."""
+    import threading
+    ranks = {}
+
+    def start():
+        ranks["out"] = run_ranks(2, "dp_rank_worker", "two ranks")
+
+    t = threading.Thread(target=start)
+    t.start()
+    ref = dp_scenarios(torch, kern, seed)       # meanwhile, one process
+    t.join()
+    check("out" in ranks, "two ranks: the rank processes failed")
+    worst = dict(loss_rel=0.0, grad_l2=0.0, f32_grad_l2=0.0)
+    for r, got in enumerate(ranks["out"]):
+        for s, launches in enumerate(got["train"]["launches"]):
+            want = LAUNCHES_PER_GRIDNET_TRAIN_STEP
+            check(launches == want, f"two ranks: rank {r} step {s + 1} "
+                  f"launches {launches}, expected {want}")
+        check(got["validation"]["launches"] == LAUNCHES_PER_EVAL_STEP,
+              f"two ranks: rank {r} validation launches "
+              f"{got['validation']['launches']}")
+        pairs = list(zip(got["train"]["metrics"], ref["train"]["metrics"]))
+        pairs += [(got["layout"][f]["metrics"], ref["layout"][f]["metrics"])
+                  for f in ("vae", "cvae")]
+        for m_got, m_ref in pairs:
+            for k in m_ref:
+                worst["loss_rel"] = max(worst["loss_rel"],
+                                        _rel(m_got[k], m_ref[k]))
+        l2 = per_tensor_l2(torch, got["train"]["grads"],
+                           ref["train"]["grads"])
+        worst["grad_l2"] = max(worst["grad_l2"], max(l2.values()))
+        for f in ("vae", "cvae"):
+            l2 = per_tensor_l2(torch, got["layout"][f]["grads"],
+                               ref["layout"][f]["grads"])
+            worst["f32_grad_l2"] = max(worst["f32_grad_l2"],
+                                       max(l2.values()))
+        v_got, v_ref = got["validation"], ref["validation"]
+        check(np.array_equal(v_got["iou"], v_ref["iou"], equal_nan=True),
+              f"two ranks: rank {r} per-class IoU {v_got['iou']} vs "
+              f"{v_ref['iou']}")
+        worst["loss_rel"] = max(worst["loss_rel"],
+                                _rel(v_got["loss"], v_ref["loss"]))
+    print(f"two ranks (c): Gloo with CUDA tensors on one card, global b"
+          f"{BATCH}, {BATCH // 2} a rank: {DP_TRAIN_STEPS} CoordGridNet "
+          f"train steps ({LAUNCHES_PER_GRIDNET_TRAIN_STEP['prelu_conv3x3']} "
+          f"A and {LAUNCHES_PER_GRIDNET_TRAIN_STEP['fused_lateral']} B a "
+          f"step a rank), a VAE step (class weights, free bits, capacity), "
+          f"a CVAE step and a validation against one process on the "
+          f"concatenated batches: worst loss term relative error "
+          f"{worst['loss_rel']:.3e} (limit {DP_LOSS_RTOL}), worst bf16 "
+          f"gradient L2 {worst['grad_l2']:.3e} (limit {DP_GRAD_L2}), worst "
+          f"f32 layout gradient L2 {worst['f32_grad_l2']:.3e} (limit "
+          f"{DP_GRAD_L2}), per-class IoU equal; train terms "
+          + json.dumps(ref["train"]["metrics"]), flush=True)
+    check(worst["loss_rel"] <= DP_LOSS_RTOL and worst["grad_l2"]
+          <= DP_GRAD_L2 and worst["f32_grad_l2"] <= DP_GRAD_L2,
+          f"two ranks: {worst}")
+    return worst
+
+
+def run_serving_mesh(torch, kern, seed: int) -> dict:
+    """(d): ``LayoutPredictor(mesh=make_mesh())`` on this card equals the
+    predictor without a mesh, bit for bit; its overhead a b16 request."""
+    from video_layout_generation_tpu_torch.parallel import make_mesh
+    from video_layout_generation_tpu_torch.serving import LayoutPredictor
+    flat = random_flat_params(seed)
+    kw = dict(n_frames=FRAMES, batch=BATCH, image_hw=HW,
+              filters_level=FILTERS, use_bf16=True, device=DEVICE)
+    mesh = make_mesh()
+    check(mesh.size == 1 and mesh.devices[0].type == DEVICE,
+          f"serving mesh: {mesh}")
+    preds = {"no mesh": LayoutPredictor("GridNet", flat, **kw),
+             "mesh": LayoutPredictor("GridNet", flat, mesh=mesh, **kw)}
+    req = make_request(BATCH, seed + 60)
+    outs = {name: p.predict(*req) for name, p in preds.items()}
+    check(all(a.tobytes() == b.tobytes() for a, b in
+              zip(outs["mesh"], outs["no mesh"])),
+          "serving mesh: the one-device mesh differs from no mesh")
+    ms = {}
+    for name in ("no mesh", "mesh", "mesh", "no mesh"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            preds[name].predict(*req)
+        ms.setdefault(name, []).append((time.perf_counter() - t0) / 3 * 1e3)
+    ms = {k: float(np.mean(v)) for k, v in ms.items()}
+    print(f"serving mesh (d): make_mesh() {mesh.shape} on "
+          f"{mesh.devices[0]}: frames and layouts equal to no mesh bit for "
+          f"bit; a b{BATCH} request of {FRAMES} frames {ms['mesh']:.2f} ms "
+          f"with the mesh, {ms['no mesh']:.2f} ms without (overhead "
+          f"{ms['mesh'] - ms['no mesh']:+.2f} ms)", flush=True)
+    return dict(ms_mesh=ms["mesh"], ms_no_mesh=ms["no mesh"])
+
+
+def write_png(path: str, pixels: np.ndarray) -> None:
+    """(H, W, 3) RGB or (H, W) gray uint8 as a PNG: the native writer where
+    it is built, else cv2, else PIL."""
+    from video_layout_generation_tpu_torch.evaluation.export import (
+        png_writer)
+    writer = png_writer()
+    if writer:
+        writer.save_png(path, pixels)
+        return
+    try:
+        import cv2
+        cv2.imwrite(path, pixels[..., ::-1] if pixels.ndim == 3 else pixels)
+    except ImportError:
+        from PIL import Image
+        Image.fromarray(pixels).save(path)
+
+
+def write_native_tree(root: str, seed: int) -> None:
+    """A Cityscapes tree of one 15-frame snippet at 256x512 (8 triplets),
+    frames and layouts from the synthetic dataset, written as PNGs."""
+    from video_layout_generation_tpu_torch.data.synthetic import (
+        SyntheticTriplets)
+    ds = SyntheticTriplets(NATIVE_FRAMES // 3, NATIVE_HW, N_CLASSES,
+                           seed=seed + 70, emit_uint8=True)
+    for sub in ("leftImg256", "deeplab256_label"):
+        os.makedirs(os.path.join(root, sub, "synth"), exist_ok=True)
+    for f in range(NATIVE_FRAMES):
+        s = ds[f // 3]
+        stem = f"synth_000001_{f:06d}"
+        write_png(os.path.join(root, "leftImg256", "synth",
+                               f"{stem}_leftImg8bit.png"),
+                  np.ascontiguousarray(s[f"img{f % 3 + 1}"]))
+        write_png(os.path.join(root, "deeplab256_label", "synth",
+                               f"{stem}_gtFine_myseg_id.png"),
+                  s[f"seg{f % 3 + 1}"].reshape(NATIVE_HW).astype(np.uint8))
+
+
+def decode_ms(ds) -> float:
+    """Host ms to read one triplet of ``ds``, over all of them."""
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        ds[i]
+    return (time.perf_counter() - t0) / len(ds) * 1e3
+
+
+def run_native_decoder(torch, kern, seed: int) -> dict:
+    """(e): the native decoder, built here, against cv2 / PIL on the
+    Cityscapes shape (where it builds); then one epoch of the CLI over that
+    tree with the decoder the dataset chose."""
+    import shutil
+    import tempfile
+    from video_layout_generation_tpu_torch import main as cli
+    from video_layout_generation_tpu_torch.config import config_from_args
+    from video_layout_generation_tpu_torch.data import cityscapes
+    from video_layout_generation_tpu_torch.io import native_loader
+    t0 = time.perf_counter()
+    try:
+        native_loader.build()
+        built = f"built in {time.perf_counter() - t0:.1f} s"
+    except OSError as e:
+        built = f"did not build: {e}"
+    root = tempfile.mkdtemp(prefix="vlg_native_")
+    try:
+        write_native_tree(root, seed)
+        ds = cityscapes.CityscapesTriplets(root, HW)
+        plain = cityscapes.CityscapesTriplets(root, HW, use_native=False)
+        check(len(ds) == 8, f"native: {len(ds)} triplets")
+        print(f"native (e): the native decoder {built}; the dataset "
+              f"decodes with '{ds.decoder}', without the native decoder "
+              f"with '{plain.decoder}'", flush=True)
+        out = dict(decoder=ds.decoder, fallback=plain.decoder,
+                   rgb_err=None, decode_ms_native=None)
+        if ds.decoder == "native":
+            worst = 0.0
+            for i in range(len(ds)):
+                a, b = ds[i], plain[i]
+                for k in ("seg1", "seg2", "seg3"):
+                    check(a[k].tobytes() == b[k].tobytes(),
+                          f"native: triplet {i} {k} ids differ from "
+                          f"{plain.decoder}'s")
+                for k in ("img1", "img2", "img3"):
+                    worst = max(worst, float(np.abs(a[k] - b[k]).max()))
+            check(worst <= RGB_ROUNDING, f"native: RGB {worst} from "
+                  f"{plain.decoder}'s (limit {RGB_ROUNDING})")
+            out["rgb_err"] = worst
+            ms = [decode_ms(d) for d in (ds, plain, plain, ds)]
+            out["decode_ms_native"] = (ms[0] + ms[3]) / 2
+            out["decode_ms_fallback"] = (ms[1] + ms[2]) / 2
+        else:
+            out["decode_ms_fallback"] = (decode_ms(plain)
+                                         + decode_ms(plain)) / 2
+        trainer = cli.build_trainer(config_from_args([
+            "--dataset", "cityscape", "--train_dir", root, "--val_dir", root,
+            "-bs", "4", "-e", "1", "--put_thread", "--image_size",
+            *map(str, HW), "--filters_level", *map(str, FILTERS),
+            "--hed_weights", HNED_NPZ, "--vgg_weights", VGG_NPZ, "-p",
+            os.path.join(root, "exp"), "--device", DEVICE,
+            "--seed", str(1024 + seed)]))
+        check(trainer.train_loader.loader.ds.decoder == ds.decoder,
+              "native: the CLI's dataset chose another decoder")
+        val = cli.run_trainer(trainer)
+        check(trainer.global_step == 2 and np.isfinite(val["loss"]),
+              f"native: the epoch ran {trainer.global_step} steps, "
+              f"validation {val}")
+        del trainer
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    compared = ("not compared: the native decoder is not built here"
+                if out["rgb_err"] is None else
+                f"native against {plain.decoder}: layout ids equal bit for "
+                f"bit, RGB within {out['rgb_err']:.5f} (limit "
+                f"{RGB_ROUNDING:.5f}), decode ms a triplet native "
+                f"{out['decode_ms_native']:.2f}")
+    print(f"native (e): 8 triplets of {NATIVE_HW} PNGs decoded to {HW}: "
+          f"{compared}; {plain.decoder} {out['decode_ms_fallback']:.2f} ms "
+          f"a triplet; one --put_thread CLI epoch over them with "
+          f"'{ds.decoder}' (2 steps of b4, validation loss "
+          f"{val['loss']:.4f})", flush=True)
+    return out
+
+
+def run_data_parallel(torch, kern, seed: int):
+    """Phase 14, parts (a) to (e); returns the phase's launches in this
+    process and its numbers."""
+    kern.reset_launch_counts()
+    t_phase = time.perf_counter()
+    stats = dict(put_thread=run_put_thread(torch, kern, seed))
+    torch.cuda.empty_cache()
+    stats["nccl_world1"] = run_nccl_world1(torch)
+    stats["two_ranks"] = run_two_ranks(torch, kern, seed)
+    torch.cuda.empty_cache()
+    stats["serving_mesh"] = run_serving_mesh(torch, kern, seed)
+    kern.reset_launch_counts()      # (c)'s reference launched in between
+    stats["native"] = run_native_decoder(torch, kern, seed)
+    launches = kern.launch_counts()
+    stats["phase_s"] = time.perf_counter() - t_phase
+    a = stats["put_thread"]
+    print(f"data parallel timing, card {card_line()}: fit loop samples/s at "
+          f"b{BATCH} without / with --put_thread {a['samples_per_s_off']:.1f}"
+          f" / {a['samples_per_s_on']:.1f}; NCCL all-reduce "
+          f"{stats['nccl_world1']['allreduce_ms']:.3f} device ms a step "
+          f"({stats['nccl_world1']['allreduce_bytes']} bytes); serving mesh "
+          f"overhead {stats['serving_mesh']['ms_mesh'] - stats['serving_mesh']['ms_no_mesh']:+.2f}"
+          f" ms a request; Cityscapes decode with "
+          f"'{stats['native']['decoder']}', {stats['native']['fallback']} "
+          f"{stats['native']['decode_ms_fallback']:.2f} ms a triplet; "
+          f"phase 14 took "
+          f"{stats['phase_s']:.1f} s", flush=True)
+    return launches, stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3520,6 +4226,8 @@ def main(argv=None) -> int:
         run_rollout_training(torch, kern, args.seed)
     by_path["layout families"], layout_stats = run_layout_families(
         torch, kern, args.seed)
+    by_path["data parallel"], dp_stats = run_data_parallel(torch, kern,
+                                                           args.seed)
     expected = {"no-edge rollout": LAUNCHES_PER_ROLLOUT,
                 "validation": LAUNCHES_PER_EVAL_STEP,
                 "edge rollout": LAUNCHES_PER_EDGE_ROLLOUT,
@@ -3530,7 +4238,8 @@ def main(argv=None) -> int:
                 "GridNet GAN train": LAUNCHES_PER_GRIDNET_GAN_STEP,
                 "train CLI": LAUNCHES_PER_CLI_RUN,
                 "rollout-fidelity training": LAUNCHES_PER_ROLLOUT_STEP,
-                "layout families": NO_LAUNCHES}
+                "layout families": NO_LAUNCHES,
+                "data parallel": LAUNCHES_PER_EVAL_STEP}
     for path, counts in by_path.items():
         for name, per_call in expected[path].items():
             check(per_call == 0 or counts[name] > 0,
@@ -3594,6 +4303,8 @@ def main(argv=None) -> int:
                                if k != "rates"},
            "cvae_rollout": {k: v for k, v in layout_stats["cvae"][
                "rates"].items() if k != "groups"}}), flush=True)
+    print(f"data parallel at b{BATCH}, card {card}: " + json.dumps(dp_stats),
+          flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 package's: for the defaults and for every flag of the JAX package's
 ``build_arg_parser``, ``config_from_args(argv)`` gives the same value in
 every field of the JAX ``Config``. The port adds one field, ``device``
-(default ``"cuda"``). Each option of the JAX package that the port does not
-run yet raises ``NotImplementedError`` from ``Trainer(cfg)``, naming its
-ROADMAP item, before anything is built.
+(default ``"cuda"``). Every option of the JAX package builds a trainer that
+runs it; a ``mesh_shape`` of more devices than the run has processes raises
+the JAX package's ``ValueError``, naming the ``torchrun`` launch, before
+anything is built.
 """
 
 import argparse
@@ -116,21 +117,25 @@ def selected(trainer: Trainer, name: str) -> bool:
         "device_data": isinstance(trainer.train_loader,
                                   DeviceSyntheticLoader),
         "remat": trainer.model.remat,
+        "put_thread": getattr(trainer.train_loader, "put_thread", False)
+        and trainer.val_loader.put_thread,
     }[name]
 
 
 @pytest.mark.parametrize("kw,name,item", UNPORTED,
                          ids=[u[1] for u in UNPORTED])
 def test_unported_option_raises_from_trainer(kw, name, item, tmp_path):
-    """Item 5's options raise ``NotImplementedError`` naming the item,
-    before anything is built; item 6's build a trainer that runs them, and
-    the scan executors' build the trainer the other options alone build
-    (the same step and loader, one step a batch)."""
-    if item == 5:
+    """Items 5 and 6 are ported: a ``mesh_shape`` of two devices in one
+    process raises the JAX package's ``ValueError``, naming the launch of
+    one process a device, before anything is built; the other options
+    build a trainer that runs them, and the scan executors' build the
+    trainer the other options alone build (the same step and loader, one
+    step a batch)."""
+    if name == "mesh_shape":
         cfg = tconfig.Config(dataset="synthetic", device="cpu",
                              path=str(tmp_path), **kw)
-        with pytest.raises(NotImplementedError,
-                           match=rf"{name}.*ROADMAP item {item}"):
+        with pytest.raises(ValueError, match=r"mesh shape \[2\] needs 2 "
+                           r"devices, have 1.*torchrun --nproc_per_node 2"):
             Trainer(cfg)
         assert not (tmp_path / "checkpoint").exists()   # raised first
         return
@@ -160,4 +165,4 @@ def test_fast_executor_flags_are_accepted_without_effect():
     assert cfg.chunk_steps == 2 and cfg.epoch_scan
     help_text = tconfig.build_arg_parser().format_help()
     assert "no effect in the port" in help_text
-    assert "ROADMAP item 5" in help_text and "ROADMAP item 6" not in help_text
+    assert "torchrun" in help_text and "ROADMAP item" not in help_text

@@ -4,9 +4,10 @@ index and readers on a small PNG tree written here, the host loader's
 batches and their order, the colorizer and the one-hot encoding. On the CPU
 the device loader yields the host loader's batches as tensors.
 
-The JAX readers decode with the native C++ loader when it is built; here its
-``NativeImageLoader`` is set to None on the JAX side so that both sides
-decode with cv2 (or PIL) alike, and the arrays are held equal.
+Both packages' readers decode with the native C++ loader when it builds
+(``tests/test_torch_native_loader.py`` holds the two loaders against each
+other); here ``NativeImageLoader`` is set to None on both sides so that
+both decode with cv2 (or PIL) alike, and the arrays are held equal.
 """
 
 import numpy as np
@@ -97,6 +98,7 @@ def test_triplet_index_identical(png_tree):
 
 def test_cityscapes_readers_identical(png_tree, monkeypatch):
     monkeypatch.setattr(jcity, "NativeImageLoader", None)
+    monkeypatch.setattr(tcity, "NativeImageLoader", None)
     j = jcity.CityscapesTriplets(str(png_tree), HW)
     t = tcity.CityscapesTriplets(str(png_tree), HW)
     assert len(j) == len(t)
@@ -116,6 +118,7 @@ def test_cityscapes_readers_identical(png_tree, monkeypatch):
 
 def test_cityscapes_reader_without_a_decoder_raises_by_name(png_tree,
                                                             monkeypatch):
+    monkeypatch.setattr(tcity, "NativeImageLoader", None)
     monkeypatch.setattr(tcity, "cv2", None)
     monkeypatch.setattr(tcity, "Image", None)
     ds = tcity.CityscapesTriplets(str(png_tree), HW)   # indexing needs none
@@ -127,6 +130,7 @@ def test_pil_decode_equals_cv2_without_resize(png_tree, monkeypatch):
     """Without cv2 the port decodes through PIL: at the PNGs' own size (no
     resize, whose sampling differs between the two libraries) the samples
     are byte-identical."""
+    monkeypatch.setattr(tcity, "NativeImageLoader", None)
     native = (40, 48)
     t_cv2 = tcity.CityscapesTriplets(str(png_tree), native)[0]
     monkeypatch.setattr(tcity, "cv2", None)

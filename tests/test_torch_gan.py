@@ -4,12 +4,15 @@ CPU in f32 against the JAX package.
 One G/D step of a narrow ResnetGenerator (ngf 8, 2 blocks) and PatchGAN
 (ndf 8) at 32 px, batch 2, with the committed ``hned_synth`` and
 ``vgg_synth`` snapshots, flax-initialized weights carried across through
-``params_from_flax``, ``flip_mode="none"`` and the JAX side without
-``jit``. Loss terms at rtol 1e-3, gradients at 2e-3 of each tensor's
+``params_from_flax``, ``flip_mode="none"`` and the JAX side jitted (eager,
+its first step compiled every primitive and took 86 s). Loss terms at rtol
+1e-3, gradients at 2e-3 of each tensor's
 largest value, parameters after one Adam step at atol 1e-4. The JAX step
 hands out no gradients, so they are read off an SGD step on both sides:
 ``(before - after) / lr``.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -55,31 +58,40 @@ def frozen():
                 tcombined=CombinedLoss.create(VGG_NPZ, device="cpu"))
 
 
+@functools.lru_cache(maxsize=None)
+def _init_vars(norm_d):
+    """The flax initial variables of the generator and the critic, made
+    once for every run with this critic norm."""
+    jgen = jres.ResnetGenerator(**GEN_KW)
+    jd = jdisc.NLayerDiscriminator(9, 8, n_layers=3, norm=norm_d)
+    return (jax.jit(jgen.init)(jax.random.key(0),
+                               jnp.zeros((1,) + HW + (10,), jnp.float32)),
+            jax.jit(jd.init)(jax.random.key(1),
+                             jnp.zeros((1,) + HW + (9,), jnp.float32)))
+
+
 def run_pair(frozen, gan_mode, norm_d, optimizer, lr):
     """One G/D step on both sides from the same weights and batch."""
     packed = _packed_batch(2, seed=11)
     jgen = jres.ResnetGenerator(**GEN_KW)
     jd = jdisc.NLayerDiscriminator(9, 8, n_layers=3, norm=norm_d)
     bn = norm_d == "batch"
-    with jax.disable_jit():
-        g_vars = jgen.init(jax.random.key(0),
-                           jnp.zeros((1,) + HW + (10,), jnp.float32))
-        d_vars = dict(jd.init(jax.random.key(1),
-                              jnp.zeros((1,) + HW + (9,), jnp.float32)))
-        stats = d_vars.pop("batch_stats", None)
-        state = jgan.GanTrainState(
-            gen=jstate.TrainState.create(
-                g_vars, jstate.make_optimizer(optimizer, lr)),
-            disc=jstate.TrainState.create(
-                d_vars, jstate.make_optimizer(optimizer, lr)),
-            disc_stats=stats)
-        jstep = jgan.make_gan_train_step(
-            jgen.apply, jd.apply, frozen["jhned"].apply,
-            frozen["jcombined"], gan_mode, flip_mode="none", donate=False,
-            disc_batch_stats=bn)
-        new, jmetrics = jstep(state, frozen["jhned_params"],
-                              {"packed6": jnp.asarray(packed)},
-                              jax.random.key(2))
+    g_vars, d_vars = _init_vars(norm_d)
+    d_vars = dict(d_vars)
+    stats = d_vars.pop("batch_stats", None)
+    state = jgan.GanTrainState(
+        gen=jstate.TrainState.create(
+            g_vars, jstate.make_optimizer(optimizer, lr)),
+        disc=jstate.TrainState.create(
+            d_vars, jstate.make_optimizer(optimizer, lr)),
+        disc_stats=stats)
+    jstep = jgan.make_gan_train_step(
+        jgen.apply, jd.apply, frozen["jhned"].apply,
+        frozen["jcombined"], gan_mode, flip_mode="none", donate=False,
+        disc_batch_stats=bn)
+    new, jmetrics = jstep(state, frozen["jhned_params"],
+                          {"packed6": jnp.asarray(packed)},
+                          jax.random.key(2))
 
     tgen = ResnetGenerator(**GEN_KW)
     tgen.load_state_dict(params_from_flax(g_vars), strict=True)
@@ -191,15 +203,17 @@ def test_gradient_penalty_matches_jax(interp_type):
     real = rng.standard_normal((2, 32, 32, 9)).astype(np.float32)
     fake = rng.standard_normal((2, 32, 32, 9)).astype(np.float32)
     jd = jdisc.NLayerDiscriminator(9, 8, n_layers=3, norm="instance")
-    with jax.disable_jit():
-        variables = jd.init(jax.random.key(3), jnp.asarray(real))
-        pen_r, grads_r = jgan_loss.gradient_penalty(
-            lambda z: jd.apply(variables, z), jnp.asarray(real),
-            jnp.asarray(fake), jax.random.key(4), interp_type=interp_type)
-        # and its gradient with respect to the critic's parameters
-        dpen_r = jax.grad(lambda v: jgan_loss.gradient_penalty(
+    variables = jax.jit(jd.init)(jax.random.key(3), jnp.asarray(real))
+
+    def penalty(v):
+        return jgan_loss.gradient_penalty(
             lambda z: jd.apply(v, z), jnp.asarray(real), jnp.asarray(fake),
-            jax.random.key(4), interp_type=interp_type)[0])(variables)
+            jax.random.key(4), interp_type=interp_type)
+
+    # the penalty, its input gradients and its gradient with respect to
+    # the critic's parameters, in one jitted program
+    (pen_r, grads_r), dpen_r = jax.jit(lambda v: (
+        penalty(v), jax.grad(lambda w: penalty(w)[0])(v)))(variables)
     td = NLayerDiscriminator(9, 8, n_layers=3, norm="instance")
     td.load_state_dict(params_from_flax(variables), strict=True)
     pen, grads = gradient_penalty(td, torch.from_numpy(real),

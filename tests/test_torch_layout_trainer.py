@@ -150,8 +150,11 @@ def test_snapshot_warm_start_and_refusals(tmp_path):
     with pytest.raises(ValueError, match="Architecture mismatch"):
         LayoutTrainer(port_cfg(tmp_path / "y", epochs=2, resume="latest"),
                       family="cvae", latent_dim=8)
-    for kw in ({"mesh_shape": (2,)}, {"put_thread": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-            LayoutTrainer(port_cfg(None, **kw), family="convlstm", hidden=8)
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        LayoutTrainer(port_cfg(None, mesh_shape=(2,)), family="convlstm",
+                      hidden=8)
+    threaded = LayoutTrainer(port_cfg(None, put_thread=True),
+                             family="convlstm", hidden=8)
+    assert threaded.train_loader.put_thread
     with pytest.raises(ValueError, match="unknown layout family"):
         LayoutTrainer(port_cfg(None), family="gan")

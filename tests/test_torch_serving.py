@@ -83,9 +83,11 @@ def test_predict_rejects_oversized_batch(params):
 
 
 def test_unported_options_raise(params):
-    with pytest.raises(NotImplementedError):
-        LayoutPredictor("GridNet", params, device="cpu", mesh=object(),
-                        **KW)
+    # the mesh is ported: a batch it cannot split raises the JAX message
+    from video_layout_generation_tpu_torch.parallel import make_mesh
+    with pytest.raises(ValueError, match="divisible by the mesh size 3"):
+        LayoutPredictor("GridNet", params, device="cpu",
+                        mesh=make_mesh(["cpu"] * 3), **dict(KW, batch=2))
     # checkpoints are ported: a missing one is now simply not found
     with pytest.raises(FileNotFoundError):
         LayoutPredictor.from_checkpoint("/nonexistent")
@@ -132,6 +134,8 @@ def test_port_imports_no_jax():
     assert len(imported) >= 63
     assert {"train.multistep", "train.scheduled",
             "data.device_synthetic"} <= imported
+    assert {"parallel", "parallel.mesh", "parallel.collectives",
+            "io.native_loader"} <= imported
     assert {"config", "main", "runner", "data", "data.index", "data.stats",
             "data.synthetic", "data.cityscapes", "data.pipeline",
             "io.checkpoint", "io.logging", "io.tb", "utils.meters",

@@ -6,7 +6,7 @@ The step runs a narrow ResnetGenerator (ngf 8, 2 blocks, 32 px, batch 2)
 with the committed ``hned_synth`` and ``vgg_synth`` snapshots, flax-initialized
 generator weights carried across through ``params_from_flax``, the same
 numpy batch on both sides, ``flip_mode="none"`` (the two frameworks' random
-numbers differ) and the JAX side without ``jit``. Loss terms are held at rtol
+numbers differ) and the JAX side jitted. Loss terms are held at rtol
 1e-3, gradients at 2e-3 of each tensor's largest value, parameters after
 one Adam step at atol 1e-4.
 """
@@ -255,23 +255,27 @@ def step_pair():
     hned = jhned.HNED()
     hned_params = jweights.load_hned_params(HNED_NPZ)
     combined = JaxCombinedLoss.create(VGG_NPZ)
-    with jax.disable_jit():
-        variables = jgen.init(jax.random.key(0),
-                              jnp.zeros((1,) + HW + (10,), jnp.float32))
-        jstep = jsteps.make_train_step(jgen.apply, hned.apply, combined,
-                                       flip_mode="none", donate=False,
-                                       jit=False)
-        batch = {"packed6": jnp.asarray(packed)}
-        state0 = jstate.TrainState.create(variables,
-                                          jstate.make_optimizer())
-        state1, jmetrics = jstep(state0, hned_params, batch,
-                                 jax.random.key(1))
-        dec = jsteps.decode_batch(batch)
-        x, f3n = jsteps.prepare_inputs(hned.apply, hned_params, dec)
-        loss_fn = jsteps.make_loss_fn(jgen.apply, combined)
-        jgrads = jax.grad(lambda p: loss_fn(p, x, f3n, dec["seg3"])[0])(
-            variables)
+    # the JAX side jitted: one program for the step and the gradients
+    # (eager, its first step compiled every primitive and took 85 s)
+    variables = jax.jit(jgen.init)(jax.random.key(0),
+                                   jnp.zeros((1,) + HW + (10,), jnp.float32))
+    raw = jsteps.make_train_step(jgen.apply, hned.apply, combined,
+                                 flip_mode="none", donate=False, jit=False)
+    loss_fn = jsteps.make_loss_fn(jgen.apply, combined)
 
+    @jax.jit
+    def step_and_grads(state0, hp, batch, rng):
+        state1, metrics = raw(state0, hp, batch, rng)
+        dec = jsteps.decode_batch(batch)
+        x, f3n = jsteps.prepare_inputs(hned.apply, hp, dec)
+        grads = jax.grad(lambda p: loss_fn(p, x, f3n, dec["seg3"])[0])(
+            state0.params)
+        return state1, metrics, grads
+
+    state0 = jstate.TrainState.create(variables, jstate.make_optimizer())
+    state1, jmetrics, jgrads = step_and_grads(
+        state0, hned_params, {"packed6": jnp.asarray(packed)},
+        jax.random.key(1))
     tgen = ResnetGenerator(**kw, use_dropout=True)
     tgen.load_state_dict(params_from_flax(variables), strict=True)
     thned = HNED()

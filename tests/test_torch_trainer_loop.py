@@ -1,7 +1,10 @@
 """The port's ``Trainer`` loop on the CPU, on its own: a resumed run
 equals an uninterrupted one bit for bit (plain with edges, and GAN), the
 rollout under ``inference_mode`` between train epochs, and one epoch of the
-GAN trainer. Configuration as in ``test_torch_trainer.py``.
+GAN trainer. Configuration as in ``test_torch_trainer.py`` but smaller
+(``small``: 16x16, 24x24 where the PatchGAN needs it) and on one torch
+thread: at 32x32 on the default thread pool the resume cases took 81-100 s
+under the suite's six workers, whose pools spun against each other.
 """
 
 import math
@@ -12,6 +15,20 @@ import torch
 
 from test_torch_trainer import tiny
 from video_layout_generation_tpu_torch.train.trainer import Trainer
+
+
+def small(path, **kw):
+    hw = (24, 24) if kw.get("gan_train") else (16, 16)
+    return tiny(path, image_size=hw, **kw)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for the module, restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _state_tensors(t: Trainer) -> dict:
@@ -33,10 +50,10 @@ def _state_tensors(t: Trainer) -> dict:
 def test_resume_equals_uninterrupted_run(kw, tmp_path):
     """1 + 1 epochs through ``--resume latest`` give the bits of 2 epochs:
     the flip's coins come from (seed, step), and restores write in place."""
-    whole = Trainer(tiny(tmp_path / "whole", epochs=2, **kw))
+    whole = Trainer(small(tmp_path / "whole", epochs=2, **kw))
     m_whole = whole.fit()
-    Trainer(tiny(tmp_path / "split", epochs=1, **kw)).fit()
-    resumed = Trainer(tiny(tmp_path / "split", epochs=2, resume="latest",
+    Trainer(small(tmp_path / "split", epochs=1, **kw)).fit()
+    resumed = Trainer(small(tmp_path / "split", epochs=2, resume="latest",
                            **kw))
     assert (resumed.epoch, resumed.global_step) == (1, 2)
     m_resumed = resumed.fit()
@@ -55,7 +72,7 @@ def test_resume_equals_uninterrupted_run(kw, tmp_path):
 def test_fit_with_rollout_fidelity_every_epoch(tmp_path):
     """The rollout (under ``inference_mode``) runs between train epochs
     and the next epoch trains on."""
-    t = Trainer(tiny(tmp_path, edge=True, epochs=2, rollout_fidelity_every=1,
+    t = Trainer(small(tmp_path, edge=True, epochs=2, rollout_fidelity_every=1,
                      rollout_fidelity_scenes=2))
     metrics = t.fit()
     assert t.global_step == 4 and math.isfinite(metrics["loss"])
@@ -71,7 +88,7 @@ def test_fit_with_rollout_fidelity_every_epoch(tmp_path):
 
 
 def test_gan_trainer_takes_one_epoch(tmp_path):
-    t = Trainer(tiny(tmp_path, edge=True, gan_train=True, ndf=8))
+    t = Trainer(small(tmp_path, edge=True, gan_train=True, ndf=8))
     before = {k: v.clone() for k, v in t.state.disc.params.items()}
     gen_before = {k: v.clone() for k, v in t.model_state.params.items()}
     metrics = t.fit()
@@ -89,7 +106,7 @@ def test_resnet_generator_trainer_epoch_and_rollout(tmp_path):
     """The pix2pix generator through the same loop: one epoch, validation,
     a checkpoint and the rollout (which calls it without GridNet's
     upsample choice)."""
-    t = Trainer(tiny(tmp_path, edge=False, arch="ResnetGenerator", ngf=8))
+    t = Trainer(small(tmp_path, edge=False, arch="ResnetGenerator", ngf=8))
     metrics = t.fit()
     assert math.isfinite(metrics["loss"]) and t.global_step == 2
     assert (tmp_path / "checkpoint" / "001").is_dir()

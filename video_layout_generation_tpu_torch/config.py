@@ -20,9 +20,13 @@ place what each does here:
   effect; the JAX package's ``ValueError`` for the combinations it refuses
   stays (``train/trainer.py:check_options``), so an invocation is valid in
   both packages or in neither.
-- ``put_thread`` and a ``mesh_shape`` of more than one device (data
-  parallelism) are not ported yet: ``Trainer`` raises
-  ``NotImplementedError`` naming the ROADMAP item that ports them.
+- ``put_thread`` moves the loader's host side to a feeder thread
+  (``data/pipeline.py:DeviceLoader``): the same batches in the same order.
+- ``mesh_shape`` is the data-parallel mesh: one process a card, launched
+  by ``torchrun --nproc_per_node N`` (the JAX package drives N devices
+  from one program), so its product must equal the number of processes;
+  ``parallel/mesh.py:training_mesh`` raises the JAX package's
+  ``ValueError`` otherwise, naming the launch.
 """
 
 from __future__ import annotations
@@ -118,7 +122,7 @@ class Config:
                                         # card (data/device_synthetic.py)
     epoch_scan: bool = False            # the JAX package's scan executors:
     chunk_steps: int = 0                # accepted, no effect in the port
-    put_thread: bool = False            # not ported yet (ROADMAP item 5)
+    put_thread: bool = False            # feeder thread (data/pipeline.py)
 
     # -- runtime ------------------------------------------------------------
     workers: int = 4
@@ -146,7 +150,8 @@ class Config:
     vgg_weights: Optional[str] = None   # converted VGG19 weights (.npz)
 
     # -- parallelism ---------------------------------------------------------
-    mesh_shape: Optional[Sequence[int]] = None  # one device (ROADMAP item 5)
+    mesh_shape: Optional[Sequence[int]] = None  # one card a process; None:
+                                                # every process of the run
 
     # -- the port's own -------------------------------------------------------
     device: str = "cuda"                # 'cuda' | 'cpu' (the plain versions)
@@ -167,10 +172,6 @@ def default_exp_path() -> str:
 
 
 _NO_EFFECT = "accepted for compatibility; no effect in the port"
-
-
-def _unported(item: str) -> str:
-    return f"not ported yet: raises NotImplementedError (ROADMAP item {item})"
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -264,7 +265,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_fast_rollout", dest="fast_rollout",
                    action="store_false", help=_NO_EFFECT)
     p.add_argument("--mesh_shape", type=int, nargs="+", default=None,
-                   help="one device; more " + _unported("5"))
+                   help="the data-parallel mesh: its product is the number "
+                        "of processes (torchrun --nproc_per_node N, one "
+                        "card each)")
     p.add_argument("--transfer_uint8", dest="transfer_uint8",
                    action="store_true", default=True)
     p.add_argument("--no_transfer_uint8", dest="transfer_uint8",
@@ -282,7 +285,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help=_NO_EFFECT)
     p.add_argument("--chunk_steps", type=int, default=0, help=_NO_EFFECT)
     p.add_argument("--put_thread", dest="put_thread",
-                   action="store_true", default=False, help=_unported("5"))
+                   action="store_true", default=False,
+                   help="collate and copy batches on a feeder thread")
     p.add_argument("--multistep_remat", dest="multistep_remat",
                    action="store_true", default=True)
     p.add_argument("--no_multistep_remat", dest="multistep_remat",

@@ -3,9 +3,12 @@
 the target size) and 3 RGB frames (BGR -> RGB) per sample, in the 6-field
 contract of ``data/synthetic.py``.
 
-Decoders: cv2, else PIL. With neither installed, reading a path raises
-``ImportError`` naming both. The JAX package's native C++ decoder
-(``io/native_loader.py``) is not ported yet.
+Decoders, fastest available first, as in the JAX package: the native C++
+loader (``io/native_loader.py``, built from ``native/vlg_loader.cpp`` at
+first use), then cv2, then PIL. A native loader that cannot be built or
+loaded (``OSError``) falls back to cv2 / PIL; ``decoder`` names the one a
+dataset uses and ``native_error`` keeps the build's message. With neither
+cv2 nor PIL installed, the fallback raises ``ImportError`` naming both.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from ..io.native_loader import NativeImageLoader
 from .index import build_triplet_index
 
 try:
@@ -69,20 +73,51 @@ def _load_seg(path: str, hw: Tuple[int, int]) -> np.ndarray:
     return np.asarray(im, np.int32)
 
 
-class CityscapesTriplets:
-    def __init__(self, root: str, image_hw: Tuple[int, int] = (256, 256)):
+def fallback_decoder() -> str:
+    """The decoder used without the native loader: ``cv2`` or ``PIL``."""
+    return "cv2" if cv2 is not None else "PIL"
+
+
+class _Decoding:
+    """The native loader when it builds and loads, else cv2 / PIL."""
+
+    def _init_decoder(self, use_native: bool):
+        self._native = None
+        self.native_error = None
+        if use_native and NativeImageLoader is not None:
+            try:
+                self._native = NativeImageLoader()
+            except OSError as e:
+                self.native_error = str(e)
+        self.decoder = "native" if self._native else fallback_decoder()
+
+    def _rgb(self, path: str) -> np.ndarray:
+        if self._native is not None:
+            return self._native.load_rgb(path, self.hw)
+        return _load_rgb(path, self.hw)
+
+    def _seg(self, path: str) -> np.ndarray:
+        if self._native is not None:
+            return self._native.load_gray(path, self.hw)
+        return _load_seg(path, self.hw)
+
+
+class CityscapesTriplets(_Decoding):
+    def __init__(self, root: str, image_hw: Tuple[int, int] = (256, 256),
+                 use_native: bool = True):
         self.samples = build_triplet_index(root)
         if not self.samples:
             raise RuntimeError(f"Found 0 triplets under {root}")
         self.hw = tuple(image_hw)
+        self._init_decoder(use_native)
 
     def __len__(self) -> int:
         return len(self.samples)
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         seg_paths, img_paths = self.samples[index]
-        imgs = [_load_rgb(p, self.hw) for p in img_paths]
-        segs = [_load_seg(p, self.hw) for p in seg_paths]
+        imgs = [self._rgb(p) for p in img_paths]
+        segs = [self._seg(p) for p in seg_paths]
         return {
             "img1": imgs[0], "img2": imgs[1], "img3": imgs[2],
             "seg1": segs[0][..., None].astype(np.float32),
@@ -98,7 +133,8 @@ class CityscapesSequences(CityscapesTriplets):
     i32}."""
 
     def __init__(self, root: str, n_frames: int = 10,
-                 image_hw: Tuple[int, int] = (256, 256)):
+                 image_hw: Tuple[int, int] = (256, 256),
+                 use_native: bool = True):
         self.n_frames = n_frames
         self.samples = build_triplet_index(root, stride=3,
                                            n_frames=n_frames)
@@ -106,6 +142,7 @@ class CityscapesSequences(CityscapesTriplets):
             raise RuntimeError(
                 f"Found 0 {n_frames}-frame windows under {root}")
         self.hw = tuple(image_hw)
+        self._init_decoder(use_native)
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         imgs, segs = self.sequence(index, self.n_frames)
@@ -114,6 +151,6 @@ class CityscapesSequences(CityscapesTriplets):
     def sequence(self, index: int, n_frames: int):
         seg_paths, img_paths = self.samples[index]
         n = min(n_frames, len(img_paths))
-        imgs = [_load_rgb(p, self.hw) for p in img_paths[:n]]
-        segs = [_load_seg(p, self.hw) for p in seg_paths[:n]]
+        imgs = [self._rgb(p) for p in img_paths[:n]]
+        segs = [self._seg(p) for p in seg_paths[:n]]
         return np.stack(imgs), np.stack(segs).astype(np.int32)

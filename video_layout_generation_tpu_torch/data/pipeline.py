@@ -7,18 +7,25 @@ contiguous NHWC numpy arrays, packed into one uint8 ``packed6`` array when
 ``transfer_uint8`` is on: the same batches, in the same order and bytes, as
 the JAX package's ``HostLoader``.
 
-``DeviceLoader`` is the one-device counterpart of the JAX package's
-``ShardedLoader``: each host batch is copied into a pinned host buffer and
-from there to the card with ``non_blocking=True`` on a side stream, two
-batches ahead of the consumer; the consumer's stream waits on the copy's
-event before it reads the batch. Sharding over several devices is ROADMAP
-item 5.
+``DeviceLoader`` is the counterpart of the JAX package's ``ShardedLoader``:
+each host batch is copied into a pinned host buffer and from there to the
+card with ``non_blocking=True`` on a side stream, two batches ahead of the
+consumer; the consumer's stream waits on the copy's event before it reads
+the batch. With ``put_thread`` a feeder thread does the collation, the
+pinned fill and the copy's launch while the consumer launches its step (the
+JAX package's ``put_thread``). Over several ranks each process's
+``HostLoader`` yields its rows of the global batch (``process_index``,
+``process_count``): ``order[r::world]``, so global batch i is rank 0's batch
+i followed by rank 1's, as ``make_array_from_process_local_data`` assembles
+it.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import queue
+import threading
 from typing import Dict, Iterator
 
 import numpy as np
@@ -178,11 +185,19 @@ class DeviceLoader:
     is already ordered after its copy on the current stream and recorded on
     it for the caching allocator. Pinning never falls back to pageable
     memory: a failure raises. On the CPU the host batch is yielded as
-    tensors."""
+    tensors.
 
-    def __init__(self, loader: HostLoader, device):
+    ``put_thread=True`` moves the host side (the loader's collation, the
+    pinned fill and the copy's launch; on the CPU the conversion to
+    tensors) to a feeder thread, ``PREFETCH`` batches ahead: the same
+    batches in the same order. An exception in the thread is raised in the
+    consumer; a consumer that stops early stops the thread, which releases
+    its buffers."""
+
+    def __init__(self, loader: HostLoader, device, put_thread: bool = False):
         self.loader = loader
         self.device = torch.device(device)
+        self.put_thread = put_thread
 
     def set_epoch(self, epoch: int):
         self.loader.set_epoch(epoch)
@@ -192,39 +207,46 @@ class DeviceLoader:
 
     def __iter__(self):
         if self.device.type != "cuda":
-            for host_batch in self.loader:
-                yield {k: torch.from_numpy(v) for k, v in host_batch.items()}
+            batches = ({k: torch.from_numpy(v) for k, v in hb.items()}
+                       for hb in self.loader)
+            if self.put_thread:
+                yield from _fed_by_thread(lambda: batches, None)
+            else:
+                yield from batches
             return
-        yield from self._iter_cuda()
-
-    def _iter_cuda(self):
+        if self.put_thread:
+            side = torch.cuda.Stream(device=self.device)
+            yield from _fed_by_thread(
+                lambda: self._copies(side), side.device,
+                lambda item: self._hand_over(*item))
+            return
         side = torch.cuda.Stream(device=self.device)
-        slots = [_Slot() for _ in range(PREFETCH)]
         window: collections.deque = collections.deque()
+        for item in self._copies(side):
+            window.append(item)
+            if len(window) < PREFETCH:
+                continue
+            yield self._hand_over(*window.popleft())
+        while window:
+            yield self._hand_over(*window.popleft())
 
-        def issue(host_batch, slot):
+    def _copies(self, side):
+        """(device tensors, copy event) of each host batch, copied on
+        ``side`` through ``PREFETCH`` pinned buffers in turn."""
+        slots = [_Slot() for _ in range(PREFETCH)]
+        for k, host_batch in enumerate(self.loader):
+            slot = slots[k % len(slots)]
             slot.fill(host_batch)
             # device memory is the side stream's; ``_hand_over`` records
             # each tensor on the consumer's stream, so the allocator reuses
             # it only after the consumer's work on it is done
             with torch.cuda.stream(side):
-                dev = {k: buf.to(self.device, non_blocking=True)
-                       for k, buf in slot.pinned.items()}
+                dev = {name: buf.to(self.device, non_blocking=True)
+                       for name, buf in slot.pinned.items()}
                 done = torch.cuda.Event()
                 done.record(side)
             slot.copied = done
-            return dev, done
-
-        it = iter(self.loader)
-        k = 0
-        for host_batch in it:
-            window.append(issue(host_batch, slots[k % len(slots)]))
-            k += 1
-            if len(window) < len(slots):
-                continue
-            yield self._hand_over(*window.popleft())
-        while window:
-            yield self._hand_over(*window.popleft())
+            yield dev, done
 
     def _hand_over(self, dev, done):
         stream = torch.cuda.current_stream(self.device)
@@ -232,3 +254,57 @@ class DeviceLoader:
         for t in dev.values():
             t.record_stream(stream)
         return dev
+
+
+_END = object()
+
+
+def _fed_by_thread(produce, device, hand_over=lambda item: item):
+    """Yield ``hand_over(item)`` for each item of ``produce()``, which runs
+    on a feeder thread (with ``device``, an indexed CUDA device, as its
+    current one) at most ``PREFETCH`` items ahead. The thread's exception
+    is raised here after the items it made; closing this generator early
+    stops the thread and waits for it."""
+    q: queue.Queue = queue.Queue(maxsize=PREFETCH)
+    stop = threading.Event()
+    err: list = []
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def feed():
+        items = None
+        try:
+            if device is not None:
+                torch.cuda.set_device(device)
+            items = produce()
+            for item in items:
+                if not put(item):
+                    break
+        except BaseException as e:          # raised in the consumer
+            err.append(e)
+        finally:
+            if items is not None and hasattr(items, "close"):
+                items.close()               # the loader's pool and buffers
+            put(_END)
+
+    thread = threading.Thread(target=feed, name="DeviceLoader.put_thread",
+                              daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _END:
+                break
+            yield hand_over(item)
+    finally:
+        stop.set()
+        thread.join()
+    if err:
+        raise err[0]

@@ -5,14 +5,19 @@ from __future__ import annotations
 
 import torch
 
+from .parallel.mesh import in_group, local_rank
+
 
 def resolve_device(device) -> torch.device:
     """``torch.device(device)``; raises for a CUDA device when the process
-    has none, instead of running on the CPU."""
+    has none, instead of running on the CPU. Under a process group a CUDA
+    device without an index is the rank's own card, ``cuda:LOCAL_RANK``."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but no CUDA device is available; "
                            "pass device='cpu' to run the plain versions")
+    if dev.type == "cuda" and dev.index is None and in_group():
+        dev = torch.device("cuda", local_rank())
     return dev
 
 

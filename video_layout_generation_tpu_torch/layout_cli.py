@@ -4,6 +4,9 @@ package's ``layout_cli.py``): the same flags, plus ``--device`` (default
 
   python -m video_layout_generation_tpu_torch.layout_cli --family cvae \\
       --dataset synthetic -e 3 -bs 8 --size 64 [--device cpu]
+
+Under ``torchrun`` (one process a card) every process joins the group
+first and trains its rows of each global batch of ``-bs``.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import argparse
 import pathlib
 
 from .config import Config, default_exp_path
+from .parallel.mesh import maybe_initialize_distributed
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -45,6 +49,7 @@ def build_trainer(argv=None):
     """The ``LayoutTrainer`` of a command line, its experiment directory
     made."""
     args = build_arg_parser().parse_args(argv)
+    maybe_initialize_distributed(args.device)
     cfg = Config(
         dataset=args.dataset, train_dir=args.train_dir,
         val_dir=args.val_dir, batch_size=args.batch_size,

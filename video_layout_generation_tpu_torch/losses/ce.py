@@ -3,7 +3,9 @@ package's ``losses/ce.py``).
 
 - ``cross_entropy_loss``: mean CE over all pixels.
 - ``class_weighted_ce``: sum(w_y * ce) / sum(w_y), torch
-  ``nn.CrossEntropyLoss(weight=w)``.
+  ``nn.CrossEntropyLoss(weight=w)``. Under a process group sum(w_y) is the
+  global batch's (all-reduced, detached: it depends on the labels only), so
+  each rank returns its share and the shares add up to the global loss.
 - ``weighted_masked_ce``: class-weighted CE summed over all pixels and
   divided by the count of unmasked pixels (the legacy completion loss).
 """
@@ -13,6 +15,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+from ..parallel.collectives import global_sum
 
 
 def _picked_logp(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -37,7 +41,7 @@ def class_weighted_ce(logits: torch.Tensor, labels: torch.Tensor,
                       class_weights) -> torch.Tensor:
     w = _weights_of(class_weights, labels)
     total = (-_picked_logp(logits, labels) * w).sum()
-    return total / w.sum().clamp_min(1e-6)
+    return total / global_sum(w.sum()).clamp_min(1e-6)
 
 
 def weighted_masked_ce(logits: torch.Tensor, labels: torch.Tensor,

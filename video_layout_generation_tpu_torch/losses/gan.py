@@ -16,6 +16,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..parallel.collectives import draw_rows
+
 
 def gan_loss(prediction: torch.Tensor, target_is_real: bool,
              gan_mode: str = "lsgan", real_label: float = 1.0,
@@ -50,8 +52,10 @@ def gradient_penalty(critic_fn: Callable[[torch.Tensor], torch.Tensor],
     elif interp_type == "fake":
         x = fake
     elif interp_type == "mixed":
-        alpha = torch.rand((real.shape[0], 1, 1, 1), generator=generator,
-                           device=real.device)
+        # this rank's rows of the global batch's draw
+        alpha = draw_rows(lambda m: torch.rand(
+            (m, 1, 1, 1), generator=generator, device=real.device),
+            real.shape[0])
         x = alpha * real + (1.0 - alpha) * fake
     else:
         raise NotImplementedError(f"{interp_type} not implemented")

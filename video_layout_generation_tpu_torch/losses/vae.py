@@ -15,6 +15,12 @@ defaults are the plain ELBO: ``free_bits`` (a per-dimension KL floor whose
 clamped dimensions carry no gradient), ``capacity`` (the objective
 ``recon + beta * |KL - C|``, which takes precedence for the KL term) and
 ``class_weights`` (class-weighted reconstruction CE).
+
+Under a process group ``vae_loss`` returns each rank's share of the global
+batch's objective and metrics (the shares add up to them): the class
+weights' sum, the free-bits mask (from the global per-dimension mean) and
+the capacity term's sign (from the global KL) are all-reduced, detached,
+before the loss. Outside a group the values are the batch's own.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from typing import Optional
 
 import torch
 
+from ..parallel.collectives import global_sum, plain_share
+from ..parallel.mesh import process_count
 from .ce import class_weighted_ce, cross_entropy_loss
 
 
@@ -43,9 +51,14 @@ def kl_standard_normal_free_bits(mu: torch.Tensor, logvar: torch.Tensor,
     """Sum over latent dimensions of max(batch-mean KL, free_bits).
 
     Returns (kl_used, kl_raw): kl_used feeds the loss, kl_raw (the true KL)
-    is reported so that collapse stays visible in the metrics."""
-    per_dim = _kl_terms(mu, logvar).mean(0)
-    return per_dim.clamp_min(free_bits).sum(), per_dim.sum()
+    is reported so that collapse stays visible in the metrics. Under a
+    process group both are the rank's shares: the batch mean is the global
+    batch's, and a dimension is floored where its global mean is."""
+    per_dim = plain_share(_kl_terms(mu, logvar).mean(0))
+    floor = free_bits / process_count()
+    used = torch.where(global_sum(per_dim) > free_bits, per_dim,
+                       torch.full_like(per_dim, floor))
+    return used.sum(), per_dim.sum()
 
 
 def kl_gaussians(mu_q, lv_q, mu_p, lv_p) -> torch.Tensor:
@@ -61,17 +74,22 @@ def vae_loss(logits, target_ids, mu, logvar, beta: float = 1.0,
              class_weights: Optional[torch.Tensor] = None):
     """(total, metrics) of the VAE objective; ``capacity`` (a scalar or
     None) takes precedence over ``free_bits`` for the KL term, and both
-    report the raw KL."""
+    report the raw KL. Under a process group, the rank's shares."""
     if class_weights is not None:
         recon = class_weighted_ce(logits, target_ids, class_weights)
     else:
-        recon = cross_entropy_loss(logits, target_ids)
+        recon = plain_share(cross_entropy_loss(logits, target_ids))
     if free_bits > 0.0:
         kl_used, kl = kl_standard_normal_free_bits(mu, logvar, free_bits)
     else:
-        kl = kl_standard_normal(mu, logvar)
+        kl = plain_share(kl_standard_normal(mu, logvar))
         kl_used = kl
-    kl_term = kl_used if capacity is None else (kl_used - capacity).abs()
+    if capacity is None:
+        kl_term = kl_used
+    else:
+        # |KL - C| as sign(global KL - C) * (the rank's KL share - C/world)
+        sign = torch.sign(global_sum(kl_used) - capacity).detach()
+        kl_term = sign * (kl_used - capacity / process_count())
     total = recon + beta * kl_term
     return total, {"loss": total, "recon": recon, "kl": kl}
 

@@ -3,11 +3,15 @@
 The JAX package's flag names, plus ``--device`` (default ``cuda``; ``cpu``
 runs every kernel's plain version), and its three modes: the rollout from
 two image paths and their layouts, validation only, or the training loop.
+Launched by ``torchrun`` (one process a card), every process joins the
+group first and trains its rows of each global batch of ``-bs``.
 
 Usage:
   python -m video_layout_generation_tpu_torch.main --train_dir ... \
       --val_dir ...
   python -m video_layout_generation_tpu_torch.main --dataset synthetic -e 2
+  torchrun --nproc_per_node 4 -m video_layout_generation_tpu_torch.main \
+      --dataset synthetic -bs 64 --mesh_shape 4
   python -m video_layout_generation_tpu_torch.main --img1 a.png \
       --img2 b.png --seg1 c.png --seg2 d.png --ckpt <checkpoint>
 """
@@ -22,6 +26,7 @@ import torch
 
 from .config import Config, config_from_args, default_exp_path
 from .io.logging import get_logger
+from .parallel.mesh import is_primary, maybe_initialize_distributed
 
 
 def device_line(cfg: Config) -> str:
@@ -38,7 +43,8 @@ def build_trainer(cfg: Config):
         cfg = cfg.replace(path=default_exp_path())
     pathlib.Path(cfg.path, "checkpoint").mkdir(parents=True, exist_ok=True)
 
-    logger = get_logger(os.path.join(cfg.path, "experiment.log"))
+    logger = get_logger(os.path.join(cfg.path, "experiment.log")
+                        if is_primary() else None)
     logger.info("Start of experiment")
     logger.info("=========== Initialized logger =============")
     logger.info("\n\t" + "\n\t".join(
@@ -67,7 +73,9 @@ def run(cfg: Config):
 
 
 def main(argv=None):
-    return run(config_from_args(argv))
+    cfg = config_from_args(argv)
+    maybe_initialize_distributed(cfg.device)
+    return run(cfg)
 
 
 if __name__ == "__main__":

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.one_hot import seg_one_hot
+from ..parallel.collectives import draw_rows
 from .layers import Conv, ConvTranspose
 
 LOGVAR_BIAS_INIT = -5.0
@@ -146,10 +147,12 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
                    generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
     """mu + exp(logvar / 2) * eps; ``eps`` is drawn from ``generator`` (on
-    mu's device) unless it is given."""
+    mu's device) unless it is given: under a process group, this rank's
+    rows of the global batch's draw."""
     if eps is None:
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device,
-                          dtype=mu.dtype)
+        eps = draw_rows(lambda m: torch.randn(
+            (m,) + tuple(mu.shape[1:]), generator=generator,
+            device=mu.device, dtype=mu.dtype), mu.shape[0])
     return mu + torch.exp(0.5 * logvar) * eps
 
 

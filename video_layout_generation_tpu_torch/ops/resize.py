@@ -3,6 +3,10 @@
 ``upsample2x_bilinear_align`` is torch ``nn.Upsample(scale_factor=2,
 mode="bilinear", align_corners=True)`` (the reference's up blocks), the
 function the JAX package computes in ``ops/resize.py`` as a banded stencil.
+On a CUDA tensor that needs a gradient its backward is the adjoint as two
+matmuls with the interpolation matrices, in f32: the library's backward
+scatters with atomic adds, whose order, and so whose bits, change from run
+to run, and training on the card is then not reproducible.
 ``upsample2x_nearest`` repeats every pixel 2x2, the rollout's opt-in
 ``upsample="nearest"``.
 
@@ -22,10 +26,35 @@ import torch
 import torch.nn.functional as F
 
 
-def upsample2x_bilinear_align(x: torch.Tensor) -> torch.Tensor:
+def _upsample2x_align(x: torch.Tensor) -> torch.Tensor:
     y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
                       mode="bilinear", align_corners=True)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+class _DeterministicUpsample(torch.autograd.Function):
+    """``_upsample2x_align`` with the adjoint of its interpolation matrices
+    as its backward: dx = A_h^T dy A_w, two f32 matmuls, the same bits on
+    every run."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.hw = (x.shape[1], x.shape[2])
+        return _upsample2x_align(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, w = ctx.hw
+        ah = _interp_matrix(h, 2 * h, True, dy.device)
+        aw = _interp_matrix(w, 2 * w, True, dy.device)
+        t = torch.einsum("ph,npqc->nhqc", ah, dy.float())
+        return torch.einsum("qw,nhqc->nhwc", aw, t).to(dy.dtype)
+
+
+def upsample2x_bilinear_align(x: torch.Tensor) -> torch.Tensor:
+    if x.is_cuda and x.requires_grad and torch.is_grad_enabled():
+        return _DeterministicUpsample.apply(x)
+    return _upsample2x_align(x)
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,14 @@ ids exact while ``n_classes <= 256``).
 frozen HNED edge net runs on the seed frames and on every generated frame
 inside the rollout (``train/rollout.py``).
 
+``mesh=make_mesh(...)`` (``parallel/mesh.py``) serves on every device of
+the mesh from this one process, as the JAX package shards the request
+batch over the mesh's ``data`` axis with replicated parameters: each
+device holds a replica of the nets and answers its slice of the padded
+request, launched on that device, and the rows are gathered in order on
+the first device before the one fetch. A mesh of one device is the path
+without a mesh.
+
 Example:
     from video_layout_generation_tpu_torch.io.weights import params_from_flax
     state = params_from_flax(flat_npz_of_an_8_channel_gridnet)
@@ -21,6 +29,8 @@ Example:
 
 from __future__ import annotations
 
+import contextlib
+import copy
 from collections import deque
 from typing import Mapping, Tuple
 
@@ -31,6 +41,7 @@ from .device import require_bf16, resolve_device
 from .io.checkpoint import CheckpointManager
 from .io.weights import params_from_flax
 from .models import get_model_cls
+from .parallel.mesh import shard_batch
 from .train.assemble import denormalize_image, normalize_image
 from .train.rollout import make_rollout_fn
 
@@ -51,12 +62,15 @@ class LayoutPredictor:
         plain PyTorch versions (the on-card reference)."""
         if arch not in ("GridNet", "CoordGridNet"):
             raise ValueError(f"serving supports GridNet archs, got {arch}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving comes with the data-parallel port")
+        if mesh is not None and batch % mesh.size != 0:
+            raise ValueError(f"compiled batch {batch} must be divisible "
+                             f"by the mesh size {mesh.size}")
         if use_edges and hned is None:
             raise ValueError("use_edges requires an HNED model")
-        self.device = resolve_device(device)
+        devices = ([resolve_device(d) for d in mesh.devices]
+                   if mesh is not None else [resolve_device(device)])
+        self.mesh = mesh
+        self.device = devices[0]
         self.arch = arch
         self.n_frames = n_frames
         self.batch = batch
@@ -81,6 +95,15 @@ class LayoutPredictor:
         self._rollout = make_rollout_fn(
             self.model, self.hned, n_frames=n_frames, use_edges=use_edges,
             upsample=upsample, plain=plain, edge_scale=edge_scale)
+        # (device, rollout) of each replica, the first one's nets the above
+        self._replicas = [(self.device, self._rollout)]
+        for dev in devices[1:]:
+            model = copy.deepcopy(self.model).to(dev)
+            hned_r = (copy.deepcopy(self.hned).to(dev)
+                      if self.hned is not None else None)
+            self._replicas.append((dev, make_rollout_fn(
+                model, hned_r, n_frames=n_frames, use_edges=use_edges,
+                upsample=upsample, plain=plain, edge_scale=edge_scale)))
         # uint8 both ways; n_classes > 256 would wrap ids in uint8
         self._quantized_serve = quantize_transfer and n_classes <= 256
 
@@ -95,17 +118,32 @@ class LayoutPredictor:
             arch = tree["arch"]
         return cls(arch, tree["params"], **kw)
 
+    def _rollout_on(self, dev, rollout, x: torch.Tensor):
+        """The rollout of packed rows ``x`` (on ``dev``), launched there."""
+        on_card = (torch.cuda.device(dev) if dev.type == "cuda"
+                   else contextlib.nullcontext())
+        with on_card:
+            if self._quantized_serve:
+                x = x.float()
+                x = torch.cat([x[..., 0:6] / 255.0, x[..., 6:8]], dim=-1)
+            i1 = normalize_image(x[..., 0:3])
+            i2 = normalize_image(x[..., 3:6])
+            s1, s2 = x[..., 6:7], x[..., 7:8]
+            return rollout(i1, i2, s1, s2)
+
     @torch.inference_mode()
     def _serve(self, x: np.ndarray, n: int) -> torch.Tensor:
-        """One packed request on the device -> one packed result there."""
-        x = torch.from_numpy(x).to(self.device)
-        if self._quantized_serve:
-            x = x.float()
-            x = torch.cat([x[..., 0:6] / 255.0, x[..., 6:8]], dim=-1)
-        i1 = normalize_image(x[..., 0:3])
-        i2 = normalize_image(x[..., 3:6])
-        s1, s2 = x[..., 6:7], x[..., 7:8]
-        imgs, segs = self._rollout(i1, i2, s1, s2)
+        """One packed request on the device(s) -> one packed result on the
+        first one."""
+        shards = ([torch.from_numpy(x).to(self.device)] if self.mesh is None
+                  else [sh["x"] for sh in shard_batch({"x": x}, self.mesh)])
+        outs = [self._rollout_on(dev, rollout, part) for (dev, rollout), part
+                in zip(self._replicas, shards)]
+        if len(outs) == 1:
+            imgs, segs = outs[0]
+        else:   # the replicas' rows, in order
+            imgs, segs = (torch.cat([o[j].to(self.device) for o in outs])
+                          for j in (0, 1))
         f = denormalize_image(imgs[:n]).clamp(0.0, 1.0)
         lay = segs[:n]
         if self._quantized_serve:

@@ -18,6 +18,12 @@ through the backward kernel's own closed-form backward. A GridNet or
 CoordGridNet generator runs kernels A and B once a step, in its one
 forward (31 and 15 launches), with the library's VJP as their backward
 (``train/steps.py``).
+
+Under a process group each rank's D and G losses are its shares of the
+global batch's (plain means), and each update sums its gradients and
+metric shares over the ranks in one flat all-reduce: two a step. A
+BatchNorm discriminator's statistics would be the rank's, not the global
+batch's, so it is refused over more than one rank.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from ..losses.ce import cross_entropy_loss
 from ..losses.gan import gan_loss, gradient_penalty
 from ..losses.pixel import l1_loss
 from .assemble import normalize_image, normalize_model_output
+from ..parallel.collectives import plain_share, sum_over_ranks
+from ..parallel.mesh import process_count
 from .state import TrainState
 from .steps import (_frozen_nets, _maybe_flip, _to_device, check_bf16_nets,
                     decode_batch, flip_coin, prepare_inputs)
@@ -58,7 +66,11 @@ class GanTrainState:
 def _grads(loss: torch.Tensor, state: TrainState) -> dict:
     names = list(state.params)
     return dict(zip(names, torch.autograd.grad(
-        loss, [state.params[k] for k in names])))
+        plain_share(loss), [state.params[k] for k in names])))
+
+
+def _shares(metrics: dict) -> dict:
+    return {k: plain_share(v.detach()) for k, v in metrics.items()}
 
 
 def make_gan_train_step(gen: torch.nn.Module, disc: torch.nn.Module,
@@ -80,6 +92,10 @@ def make_gan_train_step(gen: torch.nn.Module, disc: torch.nn.Module,
     weights (on ``device``)."""
     if flip_mode not in ("batch", "per_example", "none"):
         raise ValueError(f"unknown flip_mode {flip_mode!r}")
+    if disc_batch_stats and process_count() > 1:
+        raise ValueError("a BatchNorm discriminator needs the global batch's "
+                         "statistics, which are not gathered across ranks; "
+                         "use --norm instance over more than one rank")
     dev = resolve_device(device)
     nets = _frozen_nets(hned, combined_loss)
     check_bf16_nets(dev, gen, nets, plain)
@@ -122,6 +138,9 @@ def make_gan_train_step(gen: torch.nn.Module, disc: torch.nn.Module,
                     fake_detached, gp_generator, lambda_gp=lambda_gp)
                 loss_d = loss_d + pen
             d_grads = _grads(loss_d, state.disc)
+        d_grads, d_metrics = sum_over_ranks(d_grads, _shares(
+            {"loss_d": loss_d, "loss_d_fake": loss_d_fake,
+             "loss_d_real": loss_d_real}))
         state.disc.apply_gradients(d_grads)
 
         with torch.enable_grad():
@@ -139,12 +158,11 @@ def make_gan_train_step(gen: torch.nn.Module, disc: torch.nn.Module,
             loss_seg = cross_entropy_loss(seg_logits, s3) * w_seg
             loss_g = loss_gan + loss_l1 + loss_style + loss_seg
             g_grads = _grads(loss_g, state.gen)
+        g_grads, g_metrics = sum_over_ranks(g_grads, _shares(
+            {"loss_gan": loss_gan, "loss_l1": loss_l1,
+             "loss_style": loss_style, "loss_seg": loss_seg,
+             "loss": loss_g}))
         state.gen.apply_gradients(g_grads)
-
-        metrics = {"loss_gan": loss_gan, "loss_l1": loss_l1,
-                   "loss_style": loss_style, "loss_seg": loss_seg,
-                   "loss": loss_g, "loss_d": loss_d,
-                   "loss_d_fake": loss_d_fake, "loss_d_real": loss_d_real}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, {**g_metrics, **d_metrics}
 
     return gan_step

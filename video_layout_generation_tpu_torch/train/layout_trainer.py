@@ -20,9 +20,13 @@ Differences from the JAX ``LayoutTrainer``, each forced by the port:
   JAX's threefry streams are not reproduced;
 - the initial weights come from a ``torch.Generator`` seeded with
   ``cfg.seed``: the same distributions as flax's, other numbers;
-- the JAX ``ShardedLoader`` is the port's ``DeviceLoader``; ``put_thread``
-  and a ``mesh_shape`` of more than one device raise
-  ``NotImplementedError`` (ROADMAP item 5), as in ``Trainer``.
+- the JAX ``ShardedLoader`` is the port's ``DeviceLoader``; over several
+  ranks (one process a card, ``torchrun``) it runs as ``Trainer`` does:
+  each rank loads its rows of the global batch, starts from rank 0's
+  parameters, sums its gradients over the ranks in every step, draws the
+  global batch's noise and takes its rows, all-reduces the validation's
+  confusion total before its fetch, and rank 0 alone writes the log file
+  and saves.
 """
 
 from __future__ import annotations
@@ -34,7 +38,6 @@ from typing import Dict
 import torch
 
 from ..config import Config
-from ..data.pipeline import DeviceLoader, HostLoader
 from ..device import resolve_device
 from ..evaluation.metrics import confusion_matrix, summarize_confusion
 from ..io.checkpoint import (CheckpointManager, copy_into, merge_params,
@@ -43,10 +46,13 @@ from ..io.logging import get_logger
 from ..models.convlstm import ConvLSTMLayoutPredictor
 from ..models.vae import LayoutCVAE, LayoutVAE, one_hot_context
 from ..ops.one_hot import seg_one_hot
+from ..parallel.collectives import all_reduce_flat
+from ..parallel.mesh import (build_then_barrier, in_group, is_primary,
+                             replicate, training_mesh)
 from .multistep import decode_window_batch, is_window_batch
 from .state import TrainState, make_optimizer
 from .steps import decode_batch
-from .trainer import check_supported, step_seed
+from .trainer import sharded_loader, step_seed
 from .vae_steps import (capacity_schedule, kl_anneal,
                         make_convlstm_multistep_train_step,
                         make_convlstm_train_step,
@@ -74,8 +80,8 @@ class LayoutTrainer:
         reconstruction CE)."""
         if family not in FAMILIES:
             raise ValueError(f"unknown layout family {family!r}")
-        check_supported(cfg)
         self.cfg = cfg
+        self.mesh = training_mesh(cfg.mesh_shape)
         self.family = family
         self.kl_warmup = kl_warmup_steps
         self.beta_max = beta_max
@@ -86,7 +92,8 @@ class LayoutTrainer:
         if cfg.path:
             os.makedirs(cfg.path, exist_ok=True)
         self.logger = get_logger(
-            os.path.join(cfg.path, "experiment.log") if cfg.path else None)
+            os.path.join(cfg.path, "experiment.log")
+            if cfg.path and is_primary() else None)
         dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
         n_cls = cfg.n_classes
         init = torch.Generator().manual_seed(cfg.seed)
@@ -148,19 +155,16 @@ class LayoutTrainer:
             self._warm_start(cfg.ckpt)
         if cfg.resume:
             self.load_checkpoint(cfg.resume)
+        if in_group():
+            build_then_barrier(dev)
+            replicate(list(self.model.parameters())
+                      + list(self.model.buffers()))
 
         if dataset_train is None:
             from ..data import get_dataset
             dataset_train, dataset_val = get_dataset(cfg)
-
-        def loader(ds, shuffle):
-            return DeviceLoader(HostLoader(
-                ds, cfg.batch_size, shuffle=shuffle, seed=cfg.seed,
-                workers=cfg.workers,
-                transfer_uint8=cfg.transfer_uint8 and n_cls <= 255), dev)
-
-        self.train_loader = loader(dataset_train, True)
-        self.val_loader = loader(dataset_val, False)
+        self.train_loader = sharded_loader(cfg, dataset_train, True, dev)
+        self.val_loader = sharded_loader(cfg, dataset_val, False, dev)
 
     # ------------------------------------------------------------------
     def _warm_start(self, path: str):
@@ -261,13 +265,15 @@ class LayoutTrainer:
             cm = confusion_matrix(self.predict(batch), batch["seg3"],
                                   self.cfg.n_classes)
             cm_total = cm if cm_total is None else cm_total + cm
+        if cm_total is not None and in_group():
+            cm_total, = all_reduce_flat([cm_total])
         iou, miou, acc = summarize_confusion(cm_total, self.cfg.n_classes)
         self.logger.info("[layout/%s] val mIoU %.4f pixAcc %.4f" % (
             self.family, miou, acc))
         return {"miou": miou, "pixel_acc": acc, "per_class_iou": iou}
 
     def save_checkpoint(self):
-        if self.ckpt is not None:
+        if self.ckpt is not None and is_primary():
             self.ckpt.save(self.epoch, self.model.state_dict(),
                            self.state.opt_state, self.global_step,
                            f"layout_{self.family}")

@@ -46,8 +46,9 @@ from ..losses.pixel import l1_loss
 from ..models.hned import hned_fused_edge
 from .assemble import (assemble_model_input, const_like, denormalize_image,
                        normalize_image, normalize_model_output)
-from .steps import (_frozen_nets, _maybe_flip, _to_device, check_bf16_nets,
-                    flip_coin)
+from ..parallel.collectives import draw_rows
+from .steps import (_frozen_nets, _maybe_flip, _to_device, apply_shared,
+                    check_bf16_nets, flip_coin)
 
 def decode_window_batch(batch: Mapping[str, torch.Tensor]):
     """Device-side decode of the stacked window batch -> (imgs f32 in [0,1]
@@ -209,18 +210,26 @@ def draw_rollout_noise(k: int, n: int, hw, seg_classes: int,
     normals where ``feedback_noise`` > 0; ``layout_mask`` (K-1,N,H,W,1),
     true with probability ``layout_noise``, and ``layout_cls`` (same
     shape, f32 class ids uniform in [0, seg_classes)) where
-    ``layout_noise`` > 0. None when both levers are off."""
+    ``layout_noise`` > 0. None when both levers are off. Each is this
+    rank's n rows (axis 1) of the global batch's draw."""
     if feedback_noise <= 0.0 and layout_noise <= 0.0:
         return None
-    shape = (k - 1, n) + tuple(hw)
+    hw = tuple(hw)
     kw = dict(generator=generator, device=device)
+
+    def shape(m, c):
+        return (k - 1, m) + hw + (c,)
+
     out = {}
     if feedback_noise > 0.0:
-        out["feedback"] = torch.randn(shape + (3,), **kw)
+        out["feedback"] = draw_rows(lambda m: torch.randn(shape(m, 3), **kw),
+                                    n, dim=1)
     if layout_noise > 0.0:
-        out["layout_mask"] = torch.rand(shape + (1,), **kw) < layout_noise
-        out["layout_cls"] = torch.randint(0, seg_classes, shape + (1,),
-                                          **kw).float()
+        out["layout_mask"] = draw_rows(
+            lambda m: torch.rand(shape(m, 1), **kw), n, dim=1) < layout_noise
+        out["layout_cls"] = draw_rows(
+            lambda m: torch.randint(0, seg_classes, shape(m, 1), **kw), n,
+            dim=1).float()
     return out
 
 
@@ -272,10 +281,6 @@ def make_multistep_train_step(model: torch.nn.Module, hned, combined_loss,
                                    noise_generator, dev)
         with torch.enable_grad():
             total, metrics = loss_fn(imgs, segs, coin, noise, plain)
-            names = list(state.params)
-            grads = torch.autograd.grad(total,
-                                        [state.params[n] for n in names])
-        state.apply_gradients(dict(zip(names, grads)))
-        return state, {n: v.detach() for n, v in metrics.items()}
+        return apply_shared(state, total, metrics)
 
     return train_step

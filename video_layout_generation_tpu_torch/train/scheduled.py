@@ -31,9 +31,10 @@ from ..device import resolve_device
 from ..models.hned import hned_fused_edge
 from .assemble import (assemble_model_input, denormalize_image,
                        normalize_image, normalize_model_output)
+from ..parallel.collectives import draw_rows
 from .multistep import decode_window_batch
-from .steps import (_frozen_nets, _maybe_flip, _to_device, check_bf16_nets,
-                    flip_coin, make_loss_fn)
+from .steps import (_frozen_nets, _maybe_flip, _to_device, apply_shared,
+                    check_bf16_nets, flip_coin, make_loss_fn)
 
 
 def make_scheduled_loss_fn(model, hned, combined_loss, w_l1: float = 40.0,
@@ -84,8 +85,10 @@ def make_scheduled_loss_fn(model, hned, combined_loss, w_l1: float = 40.0,
 def draw_sampling_mask(n: int, p: float,
                        generator: Optional[torch.Generator], device
                        ) -> torch.Tensor:
-    """(n, 1, 1, 1) bool on ``device``, each true with probability p."""
-    return torch.rand((n, 1, 1, 1), generator=generator, device=device) < p
+    """(n, 1, 1, 1) bool on ``device``, each true with probability p: this
+    rank's n rows of the global batch's draw."""
+    return draw_rows(lambda m: torch.rand((m, 1, 1, 1), generator=generator,
+                                          device=device), n) < p
 
 
 def make_scheduled_train_step(model: torch.nn.Module, hned, combined_loss,
@@ -119,11 +122,7 @@ def make_scheduled_train_step(model: torch.nn.Module, hned, combined_loss,
         coin = flip_coin("batch", n, generator, dev)
         with torch.enable_grad():
             total, metrics = loss_fn(imgs, segs, mask, coin, plain)
-            names = list(state.params)
-            grads = torch.autograd.grad(total,
-                                        [state.params[k] for k in names])
-        state.apply_gradients(dict(zip(names, grads)))
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        state, metrics = apply_shared(state, total, metrics)
         metrics["ss_p"] = p
         return state, metrics
 

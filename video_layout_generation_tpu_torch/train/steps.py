@@ -22,6 +22,14 @@ the JAX package.
 
 The flip is one coin per step over the whole batch (``flip_mode="batch"``),
 one per example (``"per_example"``) or none.
+
+Under a process group (one rank a card, ``parallel/mesh.py``) each rank
+runs the step on its rows of the global batch: its loss is its share of
+the global loss (``parallel/collectives.py:plain_share``), the gradients
+and the metric shares are summed over the ranks in one flat all-reduce
+before the update, and a per-example coin is drawn at the global batch's
+shape, each rank taking its rows: the step of one process on the
+concatenated batch.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from ..losses.ce import cross_entropy_loss
 from ..losses.pixel import l1_loss
 from ..models.blocks import Conv3x3
 from ..models.hned import hned_fused_edge
+from ..parallel.collectives import draw_rows, plain_share, sum_over_ranks
 from .assemble import (assemble_model_input, normalize_image,
                        normalize_model_output)
 
@@ -120,15 +129,17 @@ def _maybe_flip(coin, *tensors):
 
 def flip_coin(flip_mode: str, n: int, generator, device):
     """The step's coin: a bool for ``batch``, a bool tensor (n,) on
-    ``device`` for ``per_example``, None for ``none``. Drawn on the CPU from
-    ``generator`` (the global generator when None), so that a step never
-    waits for the device to learn its coin."""
+    ``device`` for ``per_example`` (this rank's n rows of the global
+    batch's draw), None for ``none``. Drawn on the CPU from ``generator``
+    (the global generator when None), so that a step never waits for the
+    device to learn its coin."""
     if flip_mode == "none":
         return None
     if flip_mode == "batch":
         return bool(torch.rand((), generator=generator) < 0.5)
     if flip_mode == "per_example":
-        return (torch.rand(n, generator=generator) < 0.5).to(device)
+        coins = draw_rows(lambda m: torch.rand(m, generator=generator), n)
+        return (coins < 0.5).to(device)
     raise ValueError(f"unknown flip_mode {flip_mode!r}")
 
 
@@ -186,13 +197,29 @@ def make_train_step(model: torch.nn.Module, hned: Optional[torch.nn.Module],
                 x, f3n, s3 = _maybe_flip(coin, x, f3n, s3)
         with torch.enable_grad():
             total, (metrics, _, _) = loss_fn(x, f3n, s3, plain)
-            names = list(state.params)
-            grads = torch.autograd.grad(total,
-                                        [state.params[k] for k in names])
-        state.apply_gradients(dict(zip(names, grads)))
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return apply_shared(state, total, metrics)
 
     return train_step
+
+
+def apply_shared(state, total: torch.Tensor, metrics,
+                 shares: bool = False) -> tuple:
+    """One update from this rank's rows: the gradients of the rank's share
+    of the loss, summed over the ranks with the metric shares (one
+    all-reduce), then the optimizer's step. ``total`` and ``metrics`` are
+    plain batch means over the rank's rows, or with ``shares`` already the
+    rank's shares (``losses/vae.py:vae_loss``). Returns (state, the global
+    batch's detached metrics)."""
+    if not shares:
+        total = plain_share(total)
+        metrics = {k: plain_share(v) for k, v in metrics.items()}
+    names = list(state.params)
+    with torch.enable_grad():
+        grads = torch.autograd.grad(total, [state.params[k] for k in names])
+    grads, metrics = sum_over_ranks(
+        dict(zip(names, grads)), {k: v.detach() for k, v in metrics.items()})
+    state.apply_gradients(grads)
+    return state, metrics
 
 
 def _to_device(batch: Mapping, device: torch.device) -> dict:

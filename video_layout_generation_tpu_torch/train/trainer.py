@@ -28,12 +28,19 @@ Differences from the JAX ``Trainer``, each forced by the port:
   buffers, moments; ``learning_rate`` and ``count`` by value), since the
   train state holds the modules' own parameters and the kernels' weight
   packs are keyed on the tensor's version;
-- ``check_supported`` refuses, in one place, the options of the JAX
-  package that are not ported yet (data parallelism); ``check_options``
-  raises the JAX package's ``ValueError`` for the combinations it refuses,
-  before anything is built;
+- ``check_options`` raises the JAX package's ``ValueError`` for the
+  combinations it refuses, before anything is built;
 - ``chunk_steps`` and ``epoch_scan`` (the JAX package's scan executors)
-  change nothing: the loop runs every step itself (``config.py``).
+  change nothing: the loop runs every step itself (``config.py``);
+- data parallelism is one process a card (``torchrun``; the JAX package
+  runs one program over a mesh): ``mesh_shape`` must multiply out to the
+  world size, each rank loads its ``batch_size // world`` rows of the
+  global batch, the parameters are broadcast from rank 0 once after the
+  kernels are built on every rank, each step sums its gradients over the
+  ranks (``parallel/collectives.py``), validation all-reduces its loss and
+  confusion sums on the device before its one fetch, and rank 0 alone
+  logs to the file, writes TensorBoard events, dumps (every rank's rows,
+  gathered) and saves. Resume and warm start read on every rank.
 """
 
 from __future__ import annotations
@@ -58,6 +65,10 @@ from ..io.weights import load_hned_params
 from ..losses.combined import CombinedLoss
 from ..models import HNED, get_model_cls
 from ..ops.colorize import colorize_seg
+from ..parallel.collectives import all_reduce_flat
+from ..parallel.mesh import (build_then_barrier, in_group, is_primary,
+                             process_count, process_index, replicate,
+                             training_mesh)
 from ..utils.meters import StepTimer
 from .assemble import denormalize_image, normalize_image
 from .gan import GanTrainState, make_gan_train_step
@@ -78,8 +89,10 @@ def validate(eval_step: Callable, batches: Iterable, n_classes: int,
     called after each batch when given.
 
     The loss sum and the confusion total stay on the device while the
-    batches run; the only fetch is at the end. A loader that produced no
-    batch gives a NaN loss, zero scores and NaN per-class IoU."""
+    batches run; under a process group they are summed over the ranks
+    there (each rank ran its rows of every global batch), and the only
+    fetch is at the end. A loader that produced no batch gives a NaN loss,
+    zero scores and NaN per-class IoU."""
     loss_sum = None
     n_total = 0
     cm_total = None
@@ -93,28 +106,15 @@ def validate(eval_step: Callable, batches: Iterable, n_classes: int,
         cm_total = cm if cm_total is None else cm_total + cm
         if on_batch is not None:
             on_batch(i, batch, seg_ids, img_n)
+    if cm_total is not None and in_group():
+        loss_sum, cm_total = all_reduce_flat([loss_sum, cm_total])
+        n_total *= process_count()     # every rank holds as many rows
     iou, miou, acc = summarize_confusion(cm_total, n_classes)
     if cm_total is None:
         return {"loss": float("nan"), "miou": miou, "pixel_acc": acc,
                 "per_class_iou": iou}
     return {"loss": float(loss_sum) / n_total, "miou": miou,
             "pixel_acc": acc, "per_class_iou": iou}
-
-
-def check_supported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for an option of the JAX package that
-    the port does not run yet, naming the ROADMAP item that ports it.
-    ``fast_train``, ``fast_rollout``, ``chunk_steps`` and ``epoch_scan``
-    choose the JAX package's TPU executors and change nothing here."""
-    unported = [
-        (cfg.put_thread, "put_thread"),
-        (cfg.mesh_shape is not None and int(np.prod(cfg.mesh_shape)) > 1,
-         f"mesh_shape {cfg.mesh_shape} (more than one device)"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP item 5)")
 
 
 def check_options(cfg: Config) -> None:
@@ -149,6 +149,23 @@ def check_options(cfg: Config) -> None:
     for bad, msg in refused:
         if bad:
             raise ValueError(msg)
+
+
+def sharded_loader(cfg: Config, dataset, shuffle: bool,
+                   device) -> DeviceLoader:
+    """This process's loader: ``cfg.batch_size`` is the global batch, and
+    each of the ``world`` processes loads its ``batch_size // world`` rows
+    of it (the JAX ``Trainer._wrap_loader``)."""
+    n_proc = process_count()
+    if cfg.batch_size % n_proc:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
+                         f"process count {n_proc}")
+    host = HostLoader(dataset, cfg.batch_size // n_proc, shuffle=shuffle,
+                      seed=cfg.seed, workers=cfg.workers,
+                      process_index=process_index(), process_count=n_proc,
+                      transfer_uint8=(cfg.transfer_uint8
+                                      and cfg.n_classes <= 255))
+    return DeviceLoader(host, device, put_thread=cfg.put_thread)
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -191,14 +208,15 @@ class _RolloutModel:
 
 class Trainer:
     def __init__(self, cfg: Config, dataset_train=None, dataset_val=None):
-        check_supported(cfg)
         check_options(cfg)
         self.cfg = cfg
+        self.mesh = training_mesh(cfg.mesh_shape)
         self.device = resolve_device(cfg.device)
         if cfg.path:
             os.makedirs(cfg.path, exist_ok=True)
         self.logger = get_logger(
-            os.path.join(cfg.path, "experiment.log") if cfg.path else None)
+            os.path.join(cfg.path, "experiment.log")
+            if cfg.path and is_primary() else None)
         self.logger.info("Initializing trainer")
         dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
         dev = self.device
@@ -256,6 +274,14 @@ class Trainer:
                     "discriminator")
         if cfg.resume:
             self.load_checkpoint(cfg.resume)
+        if in_group():
+            # every rank builds the kernels before the first collective,
+            # then starts from rank 0's parameters
+            build_then_barrier(dev)
+            nets = [self.model] + ([self.disc] if self.disc is not None
+                                   else [])
+            replicate([t for net in nets for t in
+                       list(net.parameters()) + list(net.buffers())])
 
         # --- steps -------------------------------------------------------
         kw = dict(w_l1=cfg.w_l1, w_style=cfg.w_style, w_seg=cfg.w_seg,
@@ -306,6 +332,8 @@ class Trainer:
             if not hasattr(dataset_train, "scene_table"):
                 raise ValueError("device_data=True needs a dataset exposing "
                                  "scene_table() (synthetic only)")
+            if process_count() > 1:
+                raise ValueError("device_data is single-process only")
             from ..data.device_synthetic import DeviceSyntheticLoader
             self.train_loader = DeviceSyntheticLoader(
                 dataset_train, cfg.batch_size, device=dev, seed=cfg.seed,
@@ -315,7 +343,8 @@ class Trainer:
         self.val_loader = self._wrap_loader(dataset_val, shuffle=False)
 
         # --- observability ----------------------------------------------
-        self.writer = SummaryWriter(cfg.path, enabled=cfg.path is not None)
+        tb_dir = cfg.path if cfg.path and is_primary() else None
+        self.writer = SummaryWriter(tb_dir, enabled=tb_dir is not None)
         self.predict_dir = (os.path.join(cfg.path, "predict")
                             if cfg.path else None)
         self.epoch_stats: Dict[str, float] = {}
@@ -365,11 +394,7 @@ class Trainer:
         return get_dataset(self.cfg)
 
     def _wrap_loader(self, dataset, shuffle: bool) -> DeviceLoader:
-        host = HostLoader(dataset, self.cfg.batch_size, shuffle=shuffle,
-                          seed=self.cfg.seed, workers=self.cfg.workers,
-                          transfer_uint8=(self.cfg.transfer_uint8
-                                          and self.cfg.n_classes <= 255))
-        return DeviceLoader(host, self.device)
+        return sharded_loader(self.cfg, dataset, shuffle, self.device)
 
     def _seed_step(self, step: int):
         """Reseed the step's generators for global step ``step``."""
@@ -535,12 +560,18 @@ class Trainer:
             normalize_image(b["img3"]), img_n, b["seg1"], b["seg2"],
             b["seg3"].float()[..., None], seg_ids.float()[..., None],
         ], dim=-1)
-        save_npy_stack(self.predict_dir, f"val_{time.time():.0f}_{i:06d}",
-                       {"stack": stack})
+        if in_group():      # every rank's rows, in rank order
+            parts = [torch.empty_like(stack) for _ in range(process_count())]
+            torch.distributed.all_gather(parts, stack.contiguous())
+            stack = torch.cat(parts)
+        if is_primary():
+            save_npy_stack(self.predict_dir,
+                           f"val_{time.time():.0f}_{i:06d}",
+                           {"stack": stack})
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, metrics: Optional[Dict] = None):
-        if self.ckpt is None:
+        if self.ckpt is None or not is_primary():
             return
         self.logger.info("Saving checkpoint..")
         extra = None
@@ -587,7 +618,7 @@ class Trainer:
                                      (img1, img2, seg1, seg2))
         with torch.inference_mode():
             imgs, segs = self._rollout(img1, img2, seg1, seg2)
-        if save and self.predict_dir:
+        if save and self.predict_dir and is_primary():
             full_imgs = torch.cat([img1[:, None], img2[:, None], imgs], 1)
             full_segs = torch.cat([seg1[:, None], seg2[:, None], segs], 1)
             save_npy_stack(self.predict_dir, f"val_{time.time():.0f}",

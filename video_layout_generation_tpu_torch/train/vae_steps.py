@@ -15,11 +15,18 @@ package's draws). The K-step steps draw everything before the loss runs
 (``draw_cvae_noise``, ``draw_layout_corruption``). The argmax feedback
 carries no gradient. With K=1 the K-step steps run the ops of the single
 steps, bit for bit.
+
+Under a process group each rank runs the step on its rows of the global
+batch: the losses are its shares of the global batch's (``vae_loss``
+makes its own, the other objectives are plain means), the gradients and
+metric shares are summed over the ranks in one all-reduce before the
+update, and every draw is made at the global batch's shape, each rank
+taking its rows.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Optional
 
 import torch
 
@@ -28,6 +35,8 @@ from ..losses.ce import cross_entropy_loss
 from ..losses.vae import cvae_loss, vae_loss
 from ..models.vae import latent_hw, one_hot_context
 from ..ops.one_hot import seg_one_hot
+from ..parallel.collectives import draw_rows
+from .steps import apply_shared
 
 
 def kl_anneal(step: int, warmup_steps: int = 1000,
@@ -46,14 +55,6 @@ def capacity_schedule(step: int, c_max: float,
     """Linear KL capacity target 0 -> c_max nats over c_steps (Burgess et
     al. 2018), the VAE step's ``capacity``."""
     return c_max * min(1.0, step / max(c_steps, 1))
-
-
-def _apply(state, total: torch.Tensor, metrics: Mapping[str, torch.Tensor]):
-    """Gradients of ``total`` over the state's parameters, one update."""
-    names = list(state.params)
-    grads = torch.autograd.grad(total, [state.params[k] for k in names])
-    state.apply_gradients(dict(zip(names, grads)))
-    return state, {k: v.detach() for k, v in metrics.items()}
 
 
 def _ids(x, dev: torch.device) -> torch.Tensor:
@@ -86,7 +87,7 @@ def make_vae_train_step(model, n_classes: int = 20, free_bits: float = 0.0,
             total, metrics = vae_loss(logits, seg_ids, mu, logvar, beta,
                                       free_bits=free_bits, capacity=capacity,
                                       class_weights=class_weights)
-            return _apply(state, total, metrics)
+            return apply_shared(state, total, metrics, shares=True)
 
     return step
 
@@ -109,7 +110,7 @@ def make_cvae_train_step(model, n_classes: int = 20, device="cuda",
                 ctx, seg_one_hot(target_ids, n_classes), eps, generator)
             total, metrics = cvae_loss(logits, target_ids, q_stats, p_stats,
                                        beta)
-            return _apply(state, total, metrics)
+            return apply_shared(state, total, metrics)
 
     return step
 
@@ -123,11 +124,16 @@ def draw_layout_corruption(k: int, shape, n_classes: int,
     int64 classes uniform in [0, n_classes); None when the lever is off."""
     if layout_noise <= 0.0 or k < 2:
         return None
-    full = (k - 1,) + tuple(shape)
-    corrupt = torch.rand(full, generator=generator, device=device) < \
-        layout_noise
-    cls = torch.randint(0, n_classes, full, generator=generator,
-                        device=device)
+    kw = dict(generator=generator, device=device)
+
+    def full(m):
+        return (k - 1, m) + tuple(shape[1:])
+
+    # this rank's rows (axis 1) of the global batch's draws
+    corrupt = draw_rows(lambda m: torch.rand(full(m), **kw), shape[0],
+                        dim=1) < layout_noise
+    cls = draw_rows(lambda m: torch.randint(0, n_classes, full(m), **kw),
+                    shape[0], dim=1)
     return {"corrupt": corrupt, "cls": cls}
 
 
@@ -138,12 +144,14 @@ def draw_cvae_noise(k: int, n: int, hw, latent_dim: int, n_classes: int,
     latent) posterior noise of each step (step 0's is the single step's
     draw), ``gen_eps`` (K-1, ...) the prior feedback's noise (feedback
     "prior"), then ``draw_layout_corruption``'s ``corrupt`` and ``cls``."""
-    lat = (n,) + latent_hw(*hw) + (latent_dim,)
-    noise = {"eps": [torch.randn(lat, generator=generator, device=device)
+    lat = latent_hw(*hw) + (latent_dim,)
+    kw = dict(generator=generator, device=device)
+    # this rank's rows of the global batch's draws
+    noise = {"eps": [draw_rows(lambda m: torch.randn((m,) + lat, **kw), n)
                      for _ in range(k)]}
     if feedback == "prior" and k > 1:
-        noise["gen_eps"] = torch.randn((k - 1,) + lat, generator=generator,
-                                       device=device)
+        noise["gen_eps"] = draw_rows(
+            lambda m: torch.randn((k - 1, m) + lat, **kw), n, dim=1)
     corruption = draw_layout_corruption(k, (n,) + tuple(hw), n_classes,
                                         layout_noise, generator, device)
     if corruption is not None:
@@ -212,7 +220,7 @@ def make_cvae_multistep_train_step(model, n_classes: int = 20, k: int = 2,
             loss = sum(totals) * inv_k
             metrics = {m: v * inv_k for m, v in metric_sum.items()}
             metrics["loss"] = loss
-            return _apply(state, loss, metrics)
+            return apply_shared(state, loss, metrics)
 
     return step
 
@@ -226,7 +234,7 @@ def make_convlstm_train_step(model, n_classes: int = 20, device="cuda"):
         ctx_oh = seg_one_hot(_ids(ctx_ids, dev), n_classes)
         with torch.enable_grad():
             loss = cross_entropy_loss(model(ctx_oh), _ids(target_ids, dev))
-            return _apply(state, loss, {"loss": loss})
+            return apply_shared(state, loss, {"loss": loss})
 
     return step
 
@@ -260,6 +268,6 @@ def make_convlstm_multistep_train_step(
                     c1, c2 = c2, _corrupted(logits.detach().argmax(-1),
                                             noise, i)
             loss = total / k
-            return _apply(state, loss, {"loss": loss})
+            return apply_shared(state, loss, {"loss": loss})
 
     return step
