@@ -4141,6 +4141,346 @@ def run_data_parallel(torch, kern, seed: int):
     return launches, stats
 
 
+# ---- phase 15: legacy layout completion (UNet, EncoderDecoder, val) --------
+#
+# (a) Simple in both modes on the card against the CPU, f32 with TF32 off;
+# (b) the val CLI end to end at the reference's eval contract, 1024x2048, in
+# the precision the CLI runs in (PyTorch's default: cuDNN convolutions in
+# TF32); (c) --data_parallel on the mesh of the one card; (d) mask2box and
+# resize_nearest on the card against the CPU; (e) utils.profiling's trace on
+# the card. The convs are the library's, as the JAX package's are XLA's: no
+# kernel of the port runs and every launch counter must stay 0.
+
+LEGACY_MODELS = ("u_net", "encoder_decoder")
+LEGACY_CLASSES, LEGACY_EMBED = 29, 15
+LEGACY_CARD_CPU_HW = (256, 512)
+LEGACY_CARD_CPU_BATCH = 2
+LEGACY_HW = (1024, 2048)     # the reference's eval contract (src/val.py:176)
+LEGACY_BATCH = 2
+LEGACY_SAMPLES = 8
+LEGACY_PNG_THREADS = 4
+# (a), f32 card (TF32 off) against f32 CPU, stated before the first run:
+# the logits' largest difference over their largest value, the share of
+# equal argmax ids, and each running statistic after one train=True
+# forward, of max(1, |CPU value|)
+LEGACY_LOGIT_RTOL = 1e-4
+LEGACY_ARGMAX_AGREEMENT = 0.9999
+LEGACY_STATS_TOL = 1e-5
+LEGACY_ANNOTATION = "vlg_legacy_completion"
+
+
+def legacy_check_no_launches(kern, label: str) -> dict:
+    counts = kern.launch_counts()
+    check(all(v == 0 for v in counts.values()),
+          f"legacy {label}: hand-written kernels launched {counts}, "
+          f"expected none")
+    return counts
+
+
+def legacy_model(torch, name: str, seed: int):
+    """``Simple`` with random weights from ``seed``, its conv kernels
+    scaled by sqrt(2) (He instead of LeCun: activations keep their size
+    through the ReLUs), and EncoderDecoder's last conv by 4 more: its
+    composite adds the one-hot ground truth inside the crop, and at LeCun
+    scale the random logits (std about 0.25 there) never outweigh it, so
+    every id would be the ground truth's. Scaled, the logits decide most
+    of the crop's ids."""
+    from video_layout_generation_tpu_torch.models.layers import Conv
+    from video_layout_generation_tpu_torch.models.legacy import Simple
+    model = Simple(LEGACY_CLASSES, LEGACY_EMBED, name,
+                   generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Conv):
+                m.kernel.mul_(2 ** 0.5)
+        if name == "encoder_decoder":
+            model.layer.Conv_16.kernel.mul_(4.0)
+    return model
+
+
+def run_legacy_card_cpu(torch, seed: int) -> dict:
+    """(a): Simple in both modes, f32, the same seeded weights and inputs on
+    the card and on the CPU; eval logits and argmax, then the running
+    statistics after one train=True forward."""
+    from video_layout_generation_tpu_torch.val import _synthetic_arrays
+    imgs, segs, masks = _synthetic_arrays(
+        LEGACY_CARD_CPU_BATCH, LEGACY_CARD_CPU_HW, LEGACY_CLASSES,
+        seed=seed + 150)
+    out = {"tf32": bool(torch.backends.cudnn.allow_tf32)}
+    for name in LEGACY_MODELS:
+        state = legacy_model(torch, name, seed + 151).state_dict()
+        runs = {}
+        for where in (DEVICE, "cpu"):
+            model = legacy_model(torch, name, seed + 151)
+            model.load_state_dict(state, strict=True)
+            model.to(where)
+            args = [torch.from_numpy(a).to(where)
+                    for a in (masks, segs, imgs)]
+            with torch.inference_mode():
+                logits = model(*args).float().cpu()
+                model(*args, train=True)
+            runs[where] = (logits, {k: v.float().cpu() for k, v in
+                                    model.named_buffers()})
+        (card, card_stats), (cpu, cpu_stats) = runs[DEVICE], runs["cpu"]
+        rel = float((card - cpu).abs().max() / cpu.abs().max())
+        agree = float((card.argmax(-1) == cpu.argmax(-1)).float().mean())
+        stats_err = max((float(((card_stats[k] - v).abs()
+                                / v.abs().clamp_min(1.0)).max())
+                         for k, v in cpu_stats.items()), default=0.0)
+        out[name] = dict(logit_rel=rel, argmax_agreement=agree,
+                         stats_err=stats_err, n_stats=len(cpu_stats))
+        check(torch.isfinite(card).all() and rel <= LEGACY_LOGIT_RTOL
+              and agree >= LEGACY_ARGMAX_AGREEMENT
+              and stats_err <= LEGACY_STATS_TOL,
+              f"legacy (a) {name}: card vs CPU logits {rel} (limit "
+              f"{LEGACY_LOGIT_RTOL}), argmax {agree} equal (limit "
+              f"{LEGACY_ARGMAX_AGREEMENT}), statistics {stats_err} (limit "
+              f"{LEGACY_STATS_TOL})")
+    check(out["u_net"]["n_stats"] == 36,
+          f"legacy (a): u_net has {out['u_net']['n_stats']} BatchNorm "
+          f"buffers, expected 36")
+    print(f"legacy (a): Simple at b{LEGACY_CARD_CPU_BATCH}, "
+          f"{LEGACY_CARD_CPU_HW}, f32 card vs CPU with the same weights "
+          f"(cuDNN TF32 {'on' if out['tf32'] else 'off'}): "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def png_size(path: str) -> tuple:
+    """(height, width) from a PNG's IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    check(head[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
+    return (int.from_bytes(head[20:24], "big"),
+            int.from_bytes(head[16:20], "big"))
+
+
+def conv_flops(torch, model, args) -> int:
+    """Multiply-adds x 2 of every conv of one forward of ``model``."""
+    from video_layout_generation_tpu_torch.models.layers import Conv
+    total = []
+
+    def hook(mod, _inp, y):
+        k, _, cin, cout = mod.kernel.shape
+        total.append(2 * y.numel() // cout * k * k * cin * cout)
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, Conv)]
+    try:
+        with torch.inference_mode():
+            model(*args)
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(total)
+
+
+def in_memory_ids(torch, ckpt: str, name: str, seed: int) -> dict:
+    """The ids the CLI should give: the checkpoint's weights on the card
+    over the CLI's synthetic arrays, batch by batch, hashed as the CLI
+    hashes them; and the conv FLOPs of one image."""
+    import hashlib
+    from video_layout_generation_tpu_torch.val import (
+        _synthetic_arrays, load_completion_weights)
+    imgs, segs, masks = _synthetic_arrays(LEGACY_SAMPLES, LEGACY_HW,
+                                          LEGACY_CLASSES)
+    model = legacy_model(torch, name, seed + 999)
+    load_completion_weights(model, ckpt)
+    model.to(DEVICE).eval()
+    ids = hashlib.sha256()
+    for i in range(0, LEGACY_SAMPLES, LEGACY_BATCH):
+        args = [torch.from_numpy(a[i:i + LEGACY_BATCH]).to(DEVICE)
+                for a in (masks, segs, imgs)]
+        with torch.inference_mode():
+            pred = model(*args).argmax(-1).to(torch.int32)
+        ids.update(pred.cpu().numpy().tobytes())
+    flops = conv_flops(torch, model, [a[:1] for a in args])
+    return dict(ids_sha256=ids.hexdigest(), flops_per_image=flops)
+
+
+def run_legacy_cli(torch, seed: int, root: str) -> dict:
+    """(b) and (c): the val CLI at 1024x2048 for both models from a
+    checkpoint this phase writes, in the CLI's precision."""
+    from video_layout_generation_tpu_torch import val
+    from video_layout_generation_tpu_torch.io.checkpoint import (
+        CheckpointManager)
+    out = {"tf32": bool(torch.backends.cudnn.allow_tf32)}
+    for name in LEGACY_MODELS:
+        model = legacy_model(torch, name, seed + 152)
+        ckpt = CheckpointManager(os.path.join(root, name)).save(
+            0, model.state_dict(), {}, 0, f"simple29_{name}")
+        del model
+        ref = in_memory_ids(torch, ckpt, name, seed)
+        save_dir = os.path.join(root, "results")
+        argv = ["--model", name, "--size", str(LEGACY_HW[0]),
+                str(LEGACY_HW[1]), "--bs", str(LEGACY_BATCH), "--n_samples",
+                str(LEGACY_SAMPLES), "--ckpt", ckpt, "--save_dir", save_dir,
+                "--nw", str(LEGACY_PNG_THREADS), "--device", DEVICE]
+        first = val.main(argv)                       # meets cuDNN's shapes
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        timed = val.main(argv)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = profile_call(f"val {name} {LEGACY_HW} b{LEGACY_BATCH}",
+                            lambda: val.main(argv))
+        folder = os.path.join(save_dir, f"{name}_eval_{LEGACY_HW[0]}x"
+                                        f"{LEGACY_HW[1]}")
+        pngs = sorted(os.listdir(folder))
+        check(len(pngs) == LEGACY_SAMPLES
+              and all(png_size(os.path.join(folder, p)) == LEGACY_HW
+                      for p in pngs),
+              f"legacy (b) {name}: PNGs {pngs} in {folder}")
+        check(first["ids_sha256"] == ref["ids_sha256"],
+              f"legacy (b) {name}: the CLI's ids differ from the in-memory "
+              f"run of the same weights")
+        check(timed["ids_sha256"] == first["ids_sha256"],
+              f"legacy (b) {name}: a second run gave other ids")
+        check(np.isfinite(first["miou"]) and 0.0 <= first["miou"] <= 1.0,
+              f"legacy (b) {name}: mIoU {first['miou']}")
+        dp = val.main(argv + ["--data_parallel"])
+        check(dp["ids_sha256"] == first["ids_sha256"]
+              and dp["miou"] == first["miou"]
+              and dp["pixel_acc"] == first["pixel_acc"],
+              f"legacy (c) {name}: --data_parallel differs from the run "
+              f"without it")
+        loop_s = sum(timed["eval_s"]) + sum(timed["draw_s"]) + sum(
+            timed["save_s"])
+        steps = LEGACY_SAMPLES // LEGACY_BATCH
+        eval_ms = 1e3 * float(np.mean(timed["eval_s"]))
+        out[name] = dict(
+            miou=first["miou"], pixel_acc=first["pixel_acc"],
+            eval_ms=eval_ms,
+            draw_ms=1e3 * float(np.mean(timed["draw_s"])),
+            save_ms=1e3 * float(np.mean(timed["save_s"])),
+            images_per_s=LEGACY_SAMPLES / loop_s, main_wall_s=wall,
+            busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
+            idle=prof["idle"], peak_gib=peak,
+            tflop_per_image=ref["flops_per_image"] / 1e12,
+            eval_tflop_per_s=(ref["flops_per_image"] * LEGACY_BATCH
+                              / (eval_ms / 1e3) / 1e12),
+            groups=prof["groups"])
+        print(f"legacy (b): val --model {name} at {LEGACY_HW} "
+              f"b{LEGACY_BATCH}, {LEGACY_SAMPLES} samples: {len(pngs)} PNGs"
+              f" of {LEGACY_HW}, ids equal to the in-memory run and on a "
+              f"second run; (c) --data_parallel on the one-card mesh equal; "
+              + json.dumps({k: v for k, v in out[name].items()
+                            if k != "groups"}), flush=True)
+    return out
+
+
+def run_legacy_ops(torch, seed: int) -> dict:
+    """(d): mask2box and resize_nearest on the card equal the CPU's."""
+    from video_layout_generation_tpu_torch.ops import (mask2box,
+                                                       resize_nearest)
+    from video_layout_generation_tpu_torch.val import _synthetic_arrays
+    imgs, segs, masks = _synthetic_arrays(LEGACY_BATCH, LEGACY_HW,
+                                          LEGACY_CLASSES, seed=seed + 153)
+    # outer region 1; one mask with no inner region (the empty box)
+    outer = np.concatenate([1.0 - masks, np.ones_like(masks[:1])])
+    cases = {"mask2box": (mask2box, (torch.from_numpy(outer),)),
+             "resize_nearest ids down": (resize_nearest, (
+                 torch.from_numpy(segs[..., None]), (LEGACY_HW[0] // 4,
+                                                     LEGACY_HW[1] // 4))),
+             "resize_nearest ids up": (resize_nearest, (
+                 torch.from_numpy(segs[:1, ..., None]), (
+                     LEGACY_HW[0] * 2 - 1, LEGACY_HW[1] + 3))),
+             "resize_nearest rgb": (resize_nearest, (
+                 torch.from_numpy(imgs), (300, 700)))}
+    out = {}
+    for label, (fn, (x, *rest)) in cases.items():
+        card = fn(x.to(DEVICE), *rest).cpu()
+        cpu = fn(x, *rest)
+        check(card.dtype == cpu.dtype and torch.equal(card, cpu),
+              f"legacy (d) {label}: the card's result differs from the CPU's")
+        out[label] = list(card.shape)
+    boxes = mask2box(torch.from_numpy(outer).to(DEVICE)).cpu()
+    check(boxes[-1].tolist() == [LEGACY_HW[0], LEGACY_HW[1], -1, -1],
+          f"legacy (d): empty box {boxes[-1].tolist()}")
+    print(f"legacy (d): on the card equal to the CPU bit for bit: "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def run_legacy_trace(torch, seed: int, root: str) -> dict:
+    """(e): utils.profiling.trace around an annotated forward on the card
+    writes a trace holding a CUDA kernel record and the annotation."""
+    import glob
+    from video_layout_generation_tpu_torch.utils import annotate, trace
+    model = legacy_model(torch, "encoder_decoder", seed + 154).to(
+        DEVICE).eval()
+    mask = torch.zeros(1, 64, 128, device=DEVICE)
+    seg = torch.zeros(1, 64, 128, dtype=torch.int32, device=DEVICE)
+    for attempt in range(TRACE_TRIES):
+        retry_pause(attempt)
+        logdir = os.path.join(root, f"trace_{attempt}")
+        with trace(logdir):
+            with annotate(LEGACY_ANNOTATION), torch.inference_mode():
+                model(mask, seg)
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        check(len(files) == 1, f"legacy (e): trace files {files}")
+        events = json.load(open(files[0])).get("traceEvents", [])
+        kernels = sum(ev.get("cat") == "kernel" for ev in events)
+        named = sum(ev.get("name") == LEGACY_ANNOTATION for ev in events)
+        if kernels and named:
+            break
+        print(f"legacy (e): trace with {kernels} kernel records and "
+              f"{named} annotations, taking it again", flush=True)
+    else:
+        raise SmokeFailure(f"legacy (e): no trace with a kernel record and "
+                           f"the annotation in {TRACE_TRIES} tries")
+    out = dict(kernel_records=kernels, annotations=named,
+               bytes=os.path.getsize(files[0]))
+    print(f"legacy (e): trace() on the card wrote {os.path.basename(files[0])}"
+          f": " + json.dumps(out), flush=True)
+    return out
+
+
+def run_legacy_completion(torch, kern, seed: int):
+    """Phase 15, parts (a) to (e); returns its launches (none) and its
+    numbers."""
+    import shutil
+    import tempfile
+    kern.reset_launch_counts()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    stats = {"card_cpu": run_legacy_card_cpu(torch, seed)}
+    root = tempfile.mkdtemp(prefix="vlg_legacy_")
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        # the CLI leaves cuDNN's TF32 at PyTorch's default, which this
+        # script turns off at its start
+        torch.backends.cudnn.allow_tf32 = True
+        stats["cli"] = run_legacy_cli(torch, seed, root)
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.cuda.empty_cache()
+        stats["ops"] = run_legacy_ops(torch, seed)
+        stats["trace"] = run_legacy_trace(torch, seed, root)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(root, ignore_errors=True)
+    launches = legacy_check_no_launches(kern, "completion")
+    torch.cuda.empty_cache()
+    stats["phase_s"] = time.perf_counter() - t_phase
+    cli = stats["cli"]
+    print(f"legacy timing, card {card_line()}: val at {LEGACY_HW} "
+          f"b{LEGACY_BATCH} (cuDNN TF32 on) "
+          + "; ".join(
+              f"{name}: eval {cli[name]['eval_ms']:.1f} ms, draw "
+              f"{cli[name]['draw_ms']:.2f} ms, save {cli[name]['save_ms']:.1f}"
+              f" ms a batch, {cli[name]['images_per_s']:.2f} images/s, "
+              f"device busy {cli[name]['busy_ms']:.1f} ms of "
+              f"{cli[name]['wall_ms']:.1f} (idle share "
+              f"{cli[name]['idle']:.3f}), peak {cli[name]['peak_gib']:.2f} "
+              f"GiB, {cli[name]['tflop_per_image']:.3f} TFLOP an image, "
+              f"eval {cli[name]['eval_tflop_per_s']:.1f} TFLOP/s"
+              for name in LEGACY_MODELS)
+          + f"; phase 15 took {stats['phase_s']:.1f} s", flush=True)
+    return launches, stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4228,6 +4568,8 @@ def main(argv=None) -> int:
         torch, kern, args.seed)
     by_path["data parallel"], dp_stats = run_data_parallel(torch, kern,
                                                            args.seed)
+    by_path["legacy layout completion"], legacy_stats = \
+        run_legacy_completion(torch, kern, args.seed)
     expected = {"no-edge rollout": LAUNCHES_PER_ROLLOUT,
                 "validation": LAUNCHES_PER_EVAL_STEP,
                 "edge rollout": LAUNCHES_PER_EDGE_ROLLOUT,
@@ -4239,7 +4581,8 @@ def main(argv=None) -> int:
                 "train CLI": LAUNCHES_PER_CLI_RUN,
                 "rollout-fidelity training": LAUNCHES_PER_ROLLOUT_STEP,
                 "layout families": NO_LAUNCHES,
-                "data parallel": LAUNCHES_PER_EVAL_STEP}
+                "data parallel": LAUNCHES_PER_EVAL_STEP,
+                "legacy layout completion": NO_LAUNCHES}
     for path, counts in by_path.items():
         for name, per_call in expected[path].items():
             check(per_call == 0 or counts[name] > 0,
@@ -4305,6 +4648,8 @@ def main(argv=None) -> int:
                "rates"].items() if k != "groups"}}), flush=True)
     print(f"data parallel at b{BATCH}, card {card}: " + json.dumps(dp_stats),
           flush=True)
+    print(f"legacy layout completion at {LEGACY_HW}, card {card}: "
+          + json.dumps(legacy_stats), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

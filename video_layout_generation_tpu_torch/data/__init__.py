@@ -1,4 +1,9 @@
-"""Datasets and loaders of the port (the JAX package's ``data``)."""
+"""Datasets and loaders of the port (the JAX package's ``data``).
+
+Left out, as a TPU adapter of the JAX package: ``ShardedLoader`` (it puts
+each batch onto a ``jax.sharding``; each rank's ``HostLoader`` /
+``DeviceLoader`` loads its own rows instead).
+"""
 
 from .cityscapes import CityscapesSequences, CityscapesTriplets
 from .index import build_triplet_index

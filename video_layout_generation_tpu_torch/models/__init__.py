@@ -1,4 +1,9 @@
-"""Model registry of the port (the JAX package's ``get_model_cls``)."""
+"""Model registry of the port (the JAX package's ``get_model_cls``).
+
+Left out, as TPU adapters of the JAX package: ``make_packed_gridnet_apply``
+and ``make_edge_rollout_apply`` (``models/fast_gridnet.py``, the packed
+GridNet forward of the Pallas kernels).
+"""
 
 from .blocks import (CoordConv, CoordDownSamplingBlock, CoordLateralBlock,
                      CoordUpSamplingBlock, DownSamplingBlock, LateralBlock,
@@ -9,6 +14,8 @@ from .factories import define_D, define_G
 from .gridnet import CoordGridNet, GridNet
 from .hned import HNED, hned_fused_edge
 from .init import get_initializer
+from .legacy import (EncoderDecoder, Simple, UNet, simple29_encoderdecoder,
+                     simple29_unet)
 from .norms import BatchNorm, InstanceNorm, get_norm_layer
 from .resnet_gen import ResnetBlock, ResnetGenerator
 from .unet_gen import UnetGenerator, UnetSkipBlock
@@ -21,9 +28,14 @@ _REGISTRY = {
     "UnetGenerator": UnetGenerator,
     "NLayerDiscriminator": NLayerDiscriminator,
     "PixelDiscriminator": PixelDiscriminator,
+    "HNED": HNED,
     "LayoutVAE": LayoutVAE,
     "LayoutCVAE": LayoutCVAE,
     "ConvLSTMLayoutPredictor": ConvLSTMLayoutPredictor,
+    "UNet": UNet,
+    "EncoderDecoder": EncoderDecoder,
+    "simple29_unet": simple29_unet,
+    "simple29_encoderdecoder": simple29_encoderdecoder,
 }
 
 
@@ -34,7 +46,7 @@ def get_model_cls(name: str):
 
 
 __all__ = list(_REGISTRY) + [
-    "get_model_cls", "HNED", "hned_fused_edge", "PReLU", "LateralBlock", "DownSamplingBlock",
+    "get_model_cls", "hned_fused_edge", "Simple", "PReLU", "LateralBlock", "DownSamplingBlock",
     "UpSamplingBlock", "CoordConv", "CoordLateralBlock",
     "CoordDownSamplingBlock", "CoordUpSamplingBlock", "define_G", "define_D",
     "get_initializer", "get_norm_layer", "InstanceNorm", "BatchNorm",

@@ -21,14 +21,16 @@ from torch import nn
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv(features, (k, k), strides, padding)`` with symmetric
-    zero padding ``padding`` (0 is flax's VALID)."""
+    """flax ``nn.Conv(features, (k, k), strides, padding,
+    kernel_dilation)`` with symmetric zero padding ``padding`` (0 is flax's
+    VALID)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  padding: int = 0, use_bias: bool = True,
-                 kernel_init: Optional[Callable] = None, generator=None):
+                 kernel_init: Optional[Callable] = None, generator=None,
+                 dilation: int = 1):
         super().__init__()
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.dilation = stride, padding, dilation
         shape = (k, k, cin, cout)
         if kernel_init is None:
             value = torch.randn(shape, generator=generator) / (
@@ -44,7 +46,7 @@ class Conv(nn.Module):
             0, 3, 1, 2)
         b = None if self.bias is None else self.bias.to(x.dtype)
         y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=self.stride,
-                     padding=self.padding)
+                     padding=self.padding, dilation=self.dilation)
         return y.permute(0, 2, 3, 1)
 
 

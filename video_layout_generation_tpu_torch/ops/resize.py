@@ -15,6 +15,13 @@ in both coordinate conventions, computed as the JAX package computes it:
 ``A_h @ x @ A_w^T`` with row-stochastic interpolation matrices, in f32.
 ``align_corners=False`` is torch ``F.interpolate(mode="bilinear")`` (HNED's
 score maps, ``edge_scale``), ``align_corners=True`` torch ``nn.Upsample``.
+``resize_nearest`` is floor-nearest (cv2 ``INTER_NEAREST``), a gather, so
+exact for every dtype; ``interp_matrix`` is the (out, in) matrix of either
+method.
+
+Left out, as TPU adapters of the JAX package: ``upsample2x_phases``,
+``upsample2x_bilinear_align_stencil`` and ``upsample2x_align_to_1x2`` (the
+banded and 1x2-packed forms of the 2x upsample).
 """
 
 from __future__ import annotations
@@ -45,8 +52,8 @@ class _DeterministicUpsample(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         h, w = ctx.hw
-        ah = _interp_matrix(h, 2 * h, True, dy.device)
-        aw = _interp_matrix(w, 2 * w, True, dy.device)
+        ah = _interp_matrix(h, 2 * h, "bilinear", True, dy.device)
+        aw = _interp_matrix(w, 2 * w, "bilinear", True, dy.device)
         t = torch.einsum("ph,npqc->nhqc", ah, dy.float())
         return torch.einsum("qw,nhqc->nhwc", aw, t).to(dy.dtype)
 
@@ -70,10 +77,16 @@ def upsample2x(x: torch.Tensor, mode: str = "bilinear") -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _interp_matrix_np(in_size: int, out_size: int,
+def _interp_matrix_np(in_size: int, out_size: int, method: str,
                       align_corners: bool) -> np.ndarray:
-    """(out_size, in_size) row-stochastic bilinear interpolation matrix."""
+    """(out_size, in_size) row-stochastic interpolation matrix."""
     A = np.zeros((out_size, in_size), dtype=np.float32)
+    if method == "nearest":
+        # cv2 INTER_NEAREST / torch 'nearest': src = floor(dst * in/out)
+        A[np.arange(out_size), _nearest_src(in_size, out_size)] = 1.0
+        return A
+    if method != "bilinear":
+        raise ValueError(f"unknown resize method {method!r}")
     if in_size == 1:
         A[:, 0] = 1.0
         return A
@@ -93,13 +106,28 @@ def _interp_matrix_np(in_size: int, out_size: int,
     return A
 
 
+def _nearest_src(in_size: int, out_size: int) -> np.ndarray:
+    """Source index of each output index under floor-nearest."""
+    return np.minimum((np.arange(out_size) * (in_size / out_size))
+                      .astype(np.int64), in_size - 1)
+
+
 @functools.lru_cache(maxsize=None)
-def _interp_matrix(in_size: int, out_size: int, align_corners: bool,
-                   device: torch.device) -> torch.Tensor:
+def _interp_matrix(in_size: int, out_size: int, method: str,
+                   align_corners: bool, device: torch.device
+                   ) -> torch.Tensor:
     # made once per device: an upload inside the rollout loop would wait
     # for the device on every frame
-    return torch.from_numpy(
-        _interp_matrix_np(in_size, out_size, align_corners)).to(device)
+    return torch.from_numpy(_interp_matrix_np(
+        in_size, out_size, method, align_corners)).to(device)
+
+
+def interp_matrix(in_size: int, out_size: int, method: str = "bilinear",
+                  align_corners: bool = False) -> torch.Tensor:
+    """The (out_size, in_size) f32 interpolation matrix of ``method``
+    (``"bilinear"`` or ``"nearest"``), on the CPU."""
+    return torch.from_numpy(_interp_matrix_np(in_size, out_size, method,
+                                              bool(align_corners)).copy())
 
 
 def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False
@@ -110,8 +138,20 @@ def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False
     h2, w2 = out_hw
     if (h, w) == (h2, w2):
         return x
-    ah = _interp_matrix(h, h2, bool(align_corners), x.device)
-    aw = _interp_matrix(w, w2, bool(align_corners), x.device)
+    ah = _interp_matrix(h, h2, "bilinear", bool(align_corners), x.device)
+    aw = _interp_matrix(w, w2, "bilinear", bool(align_corners), x.device)
     y = torch.einsum("ph,...hwc->...pwc", ah, x.float())
     y = torch.einsum("qw,...pwc->...pqc", aw, y)
     return y.to(x.dtype).contiguous()
+
+
+def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Floor-nearest resize (cv2 ``INTER_NEAREST``) of an ...HWC tensor to
+    ``out_hw``: a gather along H and W, exact for integer dtypes."""
+    h, w = x.shape[-3], x.shape[-2]
+    h2, w2 = out_hw
+    if (h, w) == (h2, w2):
+        return x
+    sh = torch.from_numpy(_nearest_src(h, h2)).to(x.device)
+    sw = torch.from_numpy(_nearest_src(w, w2)).to(x.device)
+    return x.index_select(-3, sh).index_select(-2, sw)

@@ -1,3 +1,11 @@
+"""Process group, mesh, batch sharding and collectives of the port (the
+JAX package's ``parallel``).
+
+Left out, as TPU adapters of the JAX package: ``batch_sharding`` and
+``replicated_sharding`` (``jax.sharding`` objects; the port moves each
+shard with ``shard_batch`` and each replica with ``replicate``).
+"""
+
 from .collectives import (all_reduce_flat, draw_rows, global_sum,
                           plain_share, sum_over_ranks)
 from .mesh import (Mesh, build_then_barrier, cross_process_barrier,
