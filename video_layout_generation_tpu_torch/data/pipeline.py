@@ -31,6 +31,8 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
+
 _TRIPLET_KEYS = ("img1", "img2", "img3", "seg1", "seg2", "seg3")
 
 
@@ -125,29 +127,34 @@ class HostLoader:
             window: collections.deque = collections.deque()
             idx_iter = iter(order)
             exhausted = False
-            batch_buf = []
             while True:
-                while not exhausted and len(window) < max_inflight:
-                    try:
-                        i = next(idx_iter)
-                    except StopIteration:
-                        exhausted = True
-                        break
-                    window.append(pool.submit(self.ds.__getitem__, int(i)))
-                if not window:
+                batch_buf = []
+                with annotate("loader.gather"):
+                    while len(batch_buf) < self.batch_size:
+                        while not exhausted and len(window) < max_inflight:
+                            try:
+                                i = next(idx_iter)
+                            except StopIteration:
+                                exhausted = True
+                                break
+                            window.append(
+                                pool.submit(self.ds.__getitem__, int(i)))
+                        if not window:
+                            break
+                        batch_buf.append(window.popleft().result())
+                if len(batch_buf) < self.batch_size:
                     break
-                batch_buf.append(window.popleft().result())
-                if len(batch_buf) == self.batch_size:
-                    yield self._collate(batch_buf)
-                    batch_buf = []
+                yield self._collate(batch_buf)
             if batch_buf and not self.drop_last:
                 yield self._collate(batch_buf)
 
     def _collate(self, samples) -> Dict[str, np.ndarray]:
-        batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
-        if self.transfer_uint8:
-            batch = pack_triplet_batch(encode_batch_uint8(batch))
-        return batch
+        with annotate("loader.collate"):
+            batch = {k: np.stack([s[k] for s in samples])
+                     for k in samples[0]}
+            if self.transfer_uint8:
+                batch = pack_triplet_batch(encode_batch_uint8(batch))
+            return batch
 
 
 class _Slot:
@@ -159,19 +166,21 @@ class _Slot:
         self.copied = None
 
     def fill(self, host_batch: Dict[str, np.ndarray]):
-        # the buffer's previous copy to the card must have read it first:
-        # a pinned buffer refilled under its own in-flight copy corrupts
-        # that batch without an error
-        if self.copied is not None:
-            self.copied.synchronize()
-        for k, v in host_batch.items():
-            buf = self.pinned.get(k)
-            if (buf is None or tuple(buf.shape) != v.shape
-                    or buf.numpy().dtype != v.dtype):
-                buf = torch.empty(v.shape, dtype=torch.from_numpy(v[:0]).dtype,
-                                  pin_memory=True)
-                self.pinned[k] = buf
-            np.copyto(buf.numpy(), v)
+        with annotate("loader.pin"):
+            # the buffer's previous copy to the card must have read it
+            # first: a pinned buffer refilled under its own in-flight copy
+            # corrupts that batch without an error
+            if self.copied is not None:
+                self.copied.synchronize()
+            for k, v in host_batch.items():
+                buf = self.pinned.get(k)
+                if (buf is None or tuple(buf.shape) != v.shape
+                        or buf.numpy().dtype != v.dtype):
+                    buf = torch.empty(v.shape,
+                                      dtype=torch.from_numpy(v[:0]).dtype,
+                                      pin_memory=True)
+                    self.pinned[k] = buf
+                np.copyto(buf.numpy(), v)
 
 
 PREFETCH = 2   # batches copied ahead of the consumer, one pinned buffer each
@@ -240,7 +249,7 @@ class DeviceLoader:
             # device memory is the side stream's; ``_hand_over`` records
             # each tensor on the consumer's stream, so the allocator reuses
             # it only after the consumer's work on it is done
-            with torch.cuda.stream(side):
+            with annotate("loader.copy"), torch.cuda.stream(side):
                 dev = {name: buf.to(self.device, non_blocking=True)
                        for name, buf in slot.pinned.items()}
                 done = torch.cuda.Event()

@@ -20,6 +20,10 @@ request, launched on that device, and the rows are gathered in order on
 the first device before the one fetch. A mesh of one device is the path
 without a mesh.
 
+Under a profiler each request records ``serve.request``, holding
+``serve.pack``, ``serve.upload``, ``serve.rollout`` (the rollout's
+``rollout.frame`` spans), ``serve.fetch`` and ``serve.decode``.
+
 Example:
     from video_layout_generation_tpu_torch.io.weights import params_from_flax
     state = params_from_flax(flat_npz_of_an_8_channel_gridnet)
@@ -44,6 +48,7 @@ from .models import get_model_cls
 from .parallel.mesh import shard_batch
 from .train.assemble import denormalize_image, normalize_image
 from .train.rollout import make_rollout_fn
+from .utils.profiling import annotate
 
 
 class LayoutPredictor:
@@ -135,21 +140,38 @@ class LayoutPredictor:
     def _serve(self, x: np.ndarray, n: int) -> torch.Tensor:
         """One packed request on the device(s) -> one packed result on the
         first one."""
-        shards = ([torch.from_numpy(x).to(self.device)] if self.mesh is None
-                  else [sh["x"] for sh in shard_batch({"x": x}, self.mesh)])
-        outs = [self._rollout_on(dev, rollout, part) for (dev, rollout), part
-                in zip(self._replicas, shards)]
-        if len(outs) == 1:
-            imgs, segs = outs[0]
-        else:   # the replicas' rows, in order
-            imgs, segs = (torch.cat([o[j].to(self.device) for o in outs])
-                          for j in (0, 1))
-        f = denormalize_image(imgs[:n]).clamp(0.0, 1.0)
-        lay = segs[:n]
-        if self._quantized_serve:
-            return torch.cat([(f * 255.0 + 0.5).to(torch.uint8),
-                              lay.to(torch.uint8)], dim=-1)
-        return torch.cat([f, lay], dim=-1)
+        with annotate("serve.upload"):
+            shards = ([torch.from_numpy(x).to(self.device)]
+                      if self.mesh is None
+                      else [sh["x"] for sh in shard_batch({"x": x},
+                                                          self.mesh)])
+        with annotate("serve.rollout"):
+            outs = [self._rollout_on(dev, rollout, part)
+                    for (dev, rollout), part in zip(self._replicas, shards)]
+            if len(outs) == 1:
+                imgs, segs = outs[0]
+            else:   # the replicas' rows, in order
+                imgs, segs = (torch.cat([o[j].to(self.device) for o in outs])
+                              for j in (0, 1))
+            f = denormalize_image(imgs[:n]).clamp(0.0, 1.0)
+            lay = segs[:n]
+            if self._quantized_serve:
+                return torch.cat([(f * 255.0 + 0.5).to(torch.uint8),
+                                  lay.to(torch.uint8)], dim=-1)
+            return torch.cat([f, lay], dim=-1)
+
+    def _enqueue(self, img1, img2, seg1, seg2) -> torch.Tensor:
+        """Pack one request, upload it and launch its rollout."""
+        with annotate("serve.pack"):
+            x, n = self._pack_request(img1, img2, seg1, seg2)
+        return self._serve(x, n)
+
+    def _fetch(self, out: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+        """Fetch one packed result to the host and decode it."""
+        with annotate("serve.fetch"):
+            out = out.cpu().numpy()
+        with annotate("serve.decode"):
+            return self._decode_out(out)
 
     def _pack_request(self, img1, img2, seg1, seg2):
         """Host-side packing of one request into the single upload array."""
@@ -188,8 +210,8 @@ class LayoutPredictor:
                 ) -> Tuple[np.ndarray, np.ndarray]:
         """img*: (N, H, W, 3) RGB in [0,1]; seg*: (N, H, W) int class ids.
         Returns (frames (N, T, H, W, 3) in [0,1], layouts (N, T, H, W))."""
-        x, n = self._pack_request(img1, img2, seg1, seg2)
-        return self._decode_out(self._serve(x, n).cpu().numpy())
+        with annotate("serve.request"):
+            return self._fetch(self._enqueue(img1, img2, seg1, seg2))
 
     def predict_pipelined(self, requests, depth: int = 2):
         """Yield one (frames, layouts) per request, in order, with up to
@@ -216,11 +238,13 @@ class LayoutPredictor:
         return frames, layouts
 
     def _predict_pipelined(self, requests, depth: int):
+        # a request's ``serve.request`` span covers its enqueue; its fetch
+        # and decode come later, when the pipeline hands it out
         inflight = deque()
         for req in requests:
             if len(inflight) >= depth:
-                yield self._decode_out(inflight.popleft().cpu().numpy())
-            x, n = self._pack_request(*req)
-            inflight.append(self._serve(x, n))
+                yield self._fetch(inflight.popleft())
+            with annotate("serve.request"):
+                inflight.append(self._enqueue(*req))
         while inflight:
-            yield self._decode_out(inflight.popleft().cpu().numpy())
+            yield self._fetch(inflight.popleft())

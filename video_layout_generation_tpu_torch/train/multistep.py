@@ -47,6 +47,7 @@ from ..models.hned import hned_fused_edge
 from .assemble import (assemble_model_input, const_like, denormalize_image,
                        normalize_image, normalize_model_output)
 from ..parallel.collectives import draw_rows
+from ..utils.profiling import annotate
 from .steps import (_frozen_nets, _maybe_flip, _to_device, apply_shared,
                     check_bf16_nets, flip_coin)
 
@@ -272,14 +273,15 @@ def make_multistep_train_step(model: torch.nn.Module, hned, combined_loss,
         discount, feedback_noise, layout_noise, image_weight, image_discount)
 
     def train_step(state, batch):
-        with torch.no_grad():
-            imgs, segs = decode_window_batch(_to_device(batch, dev))
-        coin = (flip_coin("batch", imgs.shape[0], generator, dev)
-                if flip_mode == "batch" else False)
-        noise = draw_rollout_noise(k, imgs.shape[0], imgs.shape[2:4],
-                                   seg_classes, feedback_noise, layout_noise,
-                                   noise_generator, dev)
-        with torch.enable_grad():
+        with annotate("step.inputs"):
+            with torch.no_grad():
+                imgs, segs = decode_window_batch(_to_device(batch, dev))
+            coin = (flip_coin("batch", imgs.shape[0], generator, dev)
+                    if flip_mode == "batch" else False)
+            noise = draw_rollout_noise(k, imgs.shape[0], imgs.shape[2:4],
+                                       seg_classes, feedback_noise,
+                                       layout_noise, noise_generator, dev)
+        with annotate("step.forward"), torch.enable_grad():
             total, metrics = loss_fn(imgs, segs, coin, noise, plain)
         return apply_shared(state, total, metrics)
 

@@ -18,7 +18,10 @@ through ``normalize_model_output`` in f32, and feeds back the argmax layout
   approximation).
 
 The frame loop is a Python loop: PyTorch runs eagerly, and every 3x3 conv
-inside it is one launch of kernel A or kernel B.
+inside it is one launch of kernel A or kernel B. Under a profiler each
+generated frame records a ``rollout.frame`` span holding ``rollout.step``
+(GridNet) and, with edges, ``rollout.edge`` (HNED, also recorded for the
+two seed frames).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 
 from ..models.hned import hned_fused_edge
 from ..ops.resize import resize_bilinear
+from ..utils.profiling import annotate
 from .assemble import (assemble_model_input, denormalize_image,
                        normalize_model_output)
 
@@ -56,25 +60,27 @@ def make_rollout_fn(model: Callable, hned: Optional[Callable] = None,
                          f"'nearest', got {upsample!r}")
 
     def edge(f: torch.Tensor) -> torch.Tensor:
-        img = denormalize_image(f)
-        if edge_scale == 1:
-            return hned_fused_edge(hned, img, plain)
-        h, w = img.shape[1], img.shape[2]
-        # HNED's 4 stride-2 pools need >= 16 px on each side
-        sh, sw = h // edge_scale, w // edge_scale
-        if sh < 16 or sw < 16:
-            raise ValueError(
-                f"edge_scale={edge_scale} shrinks {h}x{w} frames to "
-                f"{sh}x{sw}; HNED needs at least 16x16 inputs")
-        small = resize_bilinear(img, (sh, sw), align_corners=False)
-        return resize_bilinear(hned_fused_edge(hned, small, plain), (h, w),
-                               align_corners=False)
+        with annotate("rollout.edge"):
+            img = denormalize_image(f)
+            if edge_scale == 1:
+                return hned_fused_edge(hned, img, plain)
+            h, w = img.shape[1], img.shape[2]
+            # HNED's 4 stride-2 pools need >= 16 px on each side
+            sh, sw = h // edge_scale, w // edge_scale
+            if sh < 16 or sw < 16:
+                raise ValueError(
+                    f"edge_scale={edge_scale} shrinks {h}x{w} frames to "
+                    f"{sh}x{sw}; HNED needs at least 16x16 inputs")
+            small = resize_bilinear(img, (sh, sw), align_corners=False)
+            return resize_bilinear(hned_fused_edge(hned, small, plain),
+                                   (h, w), align_corners=False)
 
     def step(x):
-        seg_logits, img = model(x, plain=plain, upsample=upsample)
-        img_n = normalize_model_output(img.float())
-        seg_next = seg_logits.float().argmax(dim=-1, keepdim=True)
-        return img_n, seg_next
+        with annotate("rollout.step"):
+            seg_logits, img = model(x, plain=plain, upsample=upsample)
+            img_n = normalize_model_output(img.float())
+            seg_next = seg_logits.float().argmax(dim=-1, keepdim=True)
+            return img_n, seg_next
 
     def rollout_edges(img1, img2, seg1, seg2):
         f_old, f_new = img1.float(), img2.float()
@@ -82,13 +88,14 @@ def make_rollout_fn(model: Callable, hned: Optional[Callable] = None,
         e_old, e_new = edge(f_old), edge(f_new)
         imgs, segs = [], []
         for _ in range(n_frames):
-            img_n, seg_next = step(assemble_model_input(
-                s_old, f_old, f_new, s_new, e_old, e_new))
-            seg_next = seg_next.float()
-            imgs.append(img_n)
-            segs.append(seg_next)
-            f_old, f_new, s_old, s_new = f_new, img_n, s_new, seg_next
-            e_old, e_new = e_new, edge(img_n)
+            with annotate("rollout.frame"):
+                img_n, seg_next = step(assemble_model_input(
+                    s_old, f_old, f_new, s_new, e_old, e_new))
+                seg_next = seg_next.float()
+                imgs.append(img_n)
+                segs.append(seg_next)
+                f_old, f_new, s_old, s_new = f_new, img_n, s_new, seg_next
+                e_old, e_new = e_new, edge(img_n)
         return imgs, segs
 
     def rollout_no_edges(img1, img2, seg1, seg2):
@@ -97,12 +104,13 @@ def make_rollout_fn(model: Callable, hned: Optional[Callable] = None,
         s_old, s_new = seg1.to(dt), seg2.to(dt)
         imgs, segs = [], []
         for _ in range(n_frames):
-            img_n, seg_next = step(assemble_model_input(
-                s_old, f_old, f_new, s_new))
-            img_n, seg_next = img_n.to(dt), seg_next.to(dt)
-            imgs.append(img_n)
-            segs.append(seg_next)
-            f_old, f_new, s_old, s_new = f_new, img_n, s_new, seg_next
+            with annotate("rollout.frame"):
+                img_n, seg_next = step(assemble_model_input(
+                    s_old, f_old, f_new, s_new))
+                img_n, seg_next = img_n.to(dt), seg_next.to(dt)
+                imgs.append(img_n)
+                segs.append(seg_next)
+                f_old, f_new, s_old, s_new = f_new, img_n, s_new, seg_next
         return imgs, segs
 
     def rollout(img1, img2, seg1, seg2

@@ -32,6 +32,7 @@ from ..models.hned import hned_fused_edge
 from .assemble import (assemble_model_input, denormalize_image,
                        normalize_image, normalize_model_output)
 from ..parallel.collectives import draw_rows
+from ..utils.profiling import annotate
 from .multistep import decode_window_batch
 from .steps import (_frozen_nets, _maybe_flip, _to_device, apply_shared,
                     check_bf16_nets, flip_coin, make_loss_fn)
@@ -115,12 +116,13 @@ def make_scheduled_train_step(model: torch.nn.Module, hned, combined_loss,
                                      w_style, w_seg)
 
     def train_step(state, batch, p: float):
-        with torch.no_grad():
-            imgs, segs = decode_window_batch(_to_device(batch, dev))
-        n = imgs.shape[0]
-        mask = draw_sampling_mask(n, p, noise_generator, dev)
-        coin = flip_coin("batch", n, generator, dev)
-        with torch.enable_grad():
+        with annotate("step.inputs"):
+            with torch.no_grad():
+                imgs, segs = decode_window_batch(_to_device(batch, dev))
+            n = imgs.shape[0]
+            mask = draw_sampling_mask(n, p, noise_generator, dev)
+            coin = flip_coin("batch", n, generator, dev)
+        with annotate("step.forward"), torch.enable_grad():
             total, metrics = loss_fn(imgs, segs, mask, coin, plain)
         state, metrics = apply_shared(state, total, metrics)
         metrics["ss_p"] = p

@@ -20,6 +20,12 @@ recomputed from the saved inputs, as the JAX package's ``custom_vjp``s take
 its data gradient. A pix2pix generator's convs are the library's, as in
 the JAX package.
 
+The train steps record the spans ``step.inputs`` (decode, edges, flip),
+``step.forward`` (the loss), ``step.backward`` (``autograd.grad``) and
+``step.update`` (the optimizer) while a profiler records
+(``utils/profiling.py:annotate``); the K-step and scheduled-sampling steps
+share them.
+
 The flip is one coin per step over the whole batch (``flip_mode="batch"``),
 one per example (``"per_example"``) or none.
 
@@ -45,6 +51,7 @@ from ..losses.pixel import l1_loss
 from ..models.blocks import Conv3x3
 from ..models.hned import hned_fused_edge
 from ..parallel.collectives import draw_rows, plain_share, sum_over_ranks
+from ..utils.profiling import annotate
 from .assemble import (assemble_model_input, normalize_image,
                        normalize_model_output)
 
@@ -188,14 +195,14 @@ def make_train_step(model: torch.nn.Module, hned: Optional[torch.nn.Module],
     loss_fn = make_loss_fn(model, combined_loss, w_l1, w_style, w_seg)
 
     def train_step(state, batch):
-        with torch.no_grad():
+        with annotate("step.inputs"), torch.no_grad():
             batch = decode_batch(_to_device(batch, dev))
             x, f3n = prepare_inputs(hned, batch, plain)
             s3 = batch["seg3"]
             coin = flip_coin(flip_mode, x.shape[0], generator, dev)
             if coin is not None:
                 x, f3n, s3 = _maybe_flip(coin, x, f3n, s3)
-        with torch.enable_grad():
+        with annotate("step.forward"), torch.enable_grad():
             total, (metrics, _, _) = loss_fn(x, f3n, s3, plain)
         return apply_shared(state, total, metrics)
 
@@ -214,11 +221,12 @@ def apply_shared(state, total: torch.Tensor, metrics,
         total = plain_share(total)
         metrics = {k: plain_share(v) for k, v in metrics.items()}
     names = list(state.params)
-    with torch.enable_grad():
+    with annotate("step.backward"), torch.enable_grad():
         grads = torch.autograd.grad(total, [state.params[k] for k in names])
     grads, metrics = sum_over_ranks(
         dict(zip(names, grads)), {k: v.detach() for k, v in metrics.items()})
-    state.apply_gradients(grads)
+    with annotate("step.update"):
+        state.apply_gradients(grads)
     return state, metrics
 
 

@@ -45,6 +45,7 @@ Differences from the JAX ``Trainer``, each forced by the port:
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from typing import Callable, Dict, Iterable, Optional
@@ -70,6 +71,7 @@ from ..parallel.mesh import (build_then_barrier, in_group, is_primary,
                              process_count, process_index, replicate,
                              training_mesh)
 from ..utils.meters import StepTimer
+from ..utils.profiling import annotate
 from .assemble import denormalize_image, normalize_image
 from .gan import GanTrainState, make_gan_train_step
 from .multistep import (is_window_batch, make_multistep_train_step,
@@ -448,33 +450,21 @@ class Trainer:
         load_s = comp_s = 0.0
         n_batches = len(self.train_loader)
         metrics = None
-        for i, batch in enumerate(self.train_loader):
+        batches = iter(self.train_loader)
+        for i in itertools.count():
+            with annotate("train.load"):
+                batch = next(batches, None)
+            if batch is None:
+                break
             timer.mark_loaded()
             load_s += timer.load_time
             self.global_step += 1
             self._seed_step(self.global_step)
-            self.state, metrics = self._train_step(self.state, batch)
+            with annotate("train.step"):
+                self.state, metrics = self._train_step(self.state, batch)
             if i % cfg.print_freq == 0:
-                # the host waits for the card only on logged steps
-                loss = float(metrics["loss"])
-                timer.mark_computed()
-                self.logger.info(
-                    "Epoch [%d/%d][%d/%d] load [%.3fs] comp [%.3fs] "
-                    "loss [%.4f]" % (self.epoch, cfg.epochs, i + 1,
-                                     n_batches, timer.load_time,
-                                     timer.comp_time, loss))
-                self.writer.add_scalar("train/loss", loss, self.global_step)
-                for k in ("loss_l1", "loss_style", "loss_seg", "loss_gan",
-                          "loss_d"):
-                    if k in metrics:
-                        self.writer.add_scalar(
-                            f"train/{k}", float(metrics[k]),
-                            self.global_step)
-                if "loss_per_step" in metrics:
-                    self._log_per_step(metrics["loss_per_step"])
-                if (self.writer.active
-                        and i % max(cfg.disp_interval, 1) == 0):
-                    self._log_train_images(batch)
+                with annotate("train.log"):
+                    self._log_step(i, n_batches, metrics, batch, timer)
             else:
                 timer.mark_computed()
             comp_s += timer.comp_time
@@ -482,6 +472,27 @@ class Trainer:
         if metrics is not None:
             float(metrics["loss"])
         self._end_epoch(n_batches, time.perf_counter() - t0, load_s, comp_s)
+
+    def _log_step(self, i: int, n_batches: int, metrics, batch,
+                  timer: StepTimer):
+        """The logged step's line, scalars and images: the host waits for
+        the card only here."""
+        cfg = self.cfg
+        loss = float(metrics["loss"])
+        timer.mark_computed()
+        self.logger.info(
+            "Epoch [%d/%d][%d/%d] load [%.3fs] comp [%.3fs] "
+            "loss [%.4f]" % (self.epoch, cfg.epochs, i + 1, n_batches,
+                             timer.load_time, timer.comp_time, loss))
+        self.writer.add_scalar("train/loss", loss, self.global_step)
+        for k in ("loss_l1", "loss_style", "loss_seg", "loss_gan", "loss_d"):
+            if k in metrics:
+                self.writer.add_scalar(f"train/{k}", float(metrics[k]),
+                                       self.global_step)
+        if "loss_per_step" in metrics:
+            self._log_per_step(metrics["loss_per_step"])
+        if self.writer.active and i % max(cfg.disp_interval, 1) == 0:
+            self._log_train_images(batch)
 
     def _end_epoch(self, steps: int, wall: float, load_s: float,
                    comp_s: float):

@@ -1,6 +1,7 @@
 """Host-side meters (the JAX package's ``utils/meters.py``):
 ``AverageMeter``, a running average, and ``StepTimer``, the load / compute
-wall-clock split the training loop logs per step."""
+split the training loop logs per step, on ``time.perf_counter`` (a clock
+that does not step)."""
 
 from __future__ import annotations
 
@@ -30,16 +31,16 @@ class StepTimer:
     """Tracks alternating load/compute intervals."""
 
     def __init__(self):
-        self._last = time.time()
+        self._last = time.perf_counter()
         self.load_time = 0.0
         self.comp_time = 0.0
 
     def mark_loaded(self):
-        now = time.time()
+        now = time.perf_counter()
         self.load_time = now - self._last
         self._last = now
 
     def mark_computed(self):
-        now = time.time()
+        now = time.perf_counter()
         self.comp_time = now - self._last
         self._last = now

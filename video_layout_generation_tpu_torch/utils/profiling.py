@@ -4,16 +4,23 @@
   card when there is one, written to ``logdir`` for TensorBoard's profile
   plugin (a ``*.pt.trace.json`` file, which ``chrome://tracing`` and
   Perfetto also read);
-- ``annotate(name)``: a named range of host work in that trace;
-- ``Throughput``: an items/s counter with EMA smoothing.
+- ``annotate(name)``: the port's span, a named range of host work in any
+  ``torch.profiler`` trace that is recording on the calling thread, on the
+  clock of the card's kernels and copies. With no profiler recording it is
+  one shared null context: a span then costs one check.
+
+The program's spans sit at its layer boundaries (README, "Tracing a
+run"); parent and child come from nesting on the thread. The profiler
+keeps them in memory and writes them out when it stops.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 
 import torch
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -30,24 +37,9 @@ def trace(logdir: str):
 
 
 def annotate(name: str):
-    return torch.profiler.record_function(name)
-
-
-class Throughput:
-    """EMA items/sec counter; call update(n_items) per step."""
-
-    def __init__(self, alpha: float = 0.1):
-        self.alpha = alpha
-        self.rate = 0.0
-        self._last = None
-
-    def update(self, n_items: int) -> float:
-        now = time.time()
-        if self._last is not None:
-            dt = max(now - self._last, 1e-9)
-            inst = n_items / dt
-            self.rate = (inst if self.rate == 0.0
-                         else self.alpha * inst
-                         + (1 - self.alpha) * self.rate)
-        self._last = now
-        return self.rate
+    """A ``record_function(name)`` range while a profiler records on this
+    thread, else the shared null context. Close it before a generator
+    yields: a span belongs to one stretch of the thread's work."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
