@@ -10,6 +10,9 @@ other); here ``NativeImageLoader`` is set to None on both sides so that
 both decode with cv2 (or PIL) alike, and the arrays are held equal.
 """
 
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -146,26 +149,127 @@ def _batches(mod, ds, epoch, **kw):
     return len(loader), list(loader)
 
 
+# the loader's sources: float or uint8 triplets (uint8 is the benchmark's
+# path to ``packed6``) and float or uint8 windows (to ``packedseq``)
+SOURCES = {"f32_triplets": {}, "u8_triplets": dict(emit_uint8=True),
+           "f32_windows": dict(n_frames=4),
+           "u8_windows": dict(n_frames=4, emit_uint8=True)}
+
+
+@pytest.mark.parametrize("source", list(SOURCES))
+@pytest.mark.parametrize("ranks", [1, 2])
 @pytest.mark.parametrize("shuffle", [True, False])
 @pytest.mark.parametrize("transfer_uint8", [True, False])
 @pytest.mark.parametrize("drop_last", [True, False])
-def test_host_loader_batches_identical(shuffle, transfer_uint8, drop_last):
-    ds = jsyn.SyntheticTriplets(11, HW, seed=5)
-    for epoch in (0, 1):
-        kw = dict(batch_size=4, shuffle=shuffle, drop_last=drop_last,
-                  transfer_uint8=transfer_uint8)
-        nj, bj = _batches(jpipe, ds, epoch, **kw)
-        nt, bt = _batches(tpipe, ds, epoch, **kw)
-        assert nj == nt == len(bt) == (2 if drop_last else 3)
-        for a, b in zip(bj, bt):
-            assert_same(a, b)
-        if transfer_uint8:
-            assert set(bt[0]) == {"packed6"}
-            assert bt[0]["packed6"].shape == (4,) + HW + (12,)
+def test_host_loader_batches_identical(shuffle, transfer_uint8, drop_last,
+                                       ranks, source):
+    ds = jsyn.SyntheticTriplets(11, HW, seed=5, **SOURCES[source])
+    per = -(-11 // ranks)            # each rank's samples, padded
+    n_batches = per // 4 if drop_last else -(-per // 4)
+    packed = ("packedseq" if "windows" in source else "packed6")
+    for rank in range(ranks):
+        for epoch in (0, 1):
+            kw = dict(batch_size=4, shuffle=shuffle, drop_last=drop_last,
+                      transfer_uint8=transfer_uint8, process_index=rank,
+                      process_count=ranks)
+            nj, bj = _batches(jpipe, ds, epoch, **kw)
+            nt, bt = _batches(tpipe, ds, epoch, **kw)
+            assert nj == nt == len(bt) == n_batches
+            for a, b in zip(bj, bt):
+                assert_same(a, b)
+            if transfer_uint8:
+                assert set(bt[0]) == {packed}
+            # the ragged last batch keeps its rows
+            assert {len(v) for v in bt[-1].values()} == {
+                4 if drop_last or per % 4 == 0 else per % 4}
+    if source != "f32_triplets" or ranks != 1:
+        return
+    if transfer_uint8:
+        assert bt[0]["packed6"].shape == (4,) + HW + (12,)
     # the order moves with the epoch when shuffled
     _, e0 = _batches(tpipe, ds, 0, batch_size=11, shuffle=True)
     _, e1 = _batches(tpipe, ds, 1, batch_size=11, shuffle=True)
     assert e0[0]["img1"].tobytes() != e1[0]["img1"].tobytes()
+
+
+def test_host_loader_workers_assemble_every_batch():
+    ds = tsyn.SyntheticTriplets(10, HW, seed=4, emit_uint8=True)
+    loader = tpipe.HostLoader(ds, 4, seed=2, workers=2, drop_last=False,
+                              transfer_uint8=True)
+    for epoch in (0, 1):
+        loader.set_epoch(epoch)
+        assert len(list(loader)) == 3
+        assert loader.assembled == {"workers": 3, "consumer": 0}
+
+
+class _OneBadSample:
+    """The dataset's samples, but sample ``bad`` has one channel of img2
+    where the others have three: ``np.stack`` refuses it, and numpy would
+    broadcast it into a row unchecked."""
+
+    def __init__(self, ds, bad: int):
+        self.ds, self.bad = ds, bad
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        s = dict(self.ds[i])
+        if i == self.bad:
+            s["img2"] = s["img2"][..., :1]
+        return s
+
+
+def _loader_threads():
+    return {t for t in threading.enumerate()
+            if t.name.startswith("HostLoader")}
+
+
+@pytest.mark.parametrize("transfer_uint8", [True, False])
+def test_host_loader_sample_that_does_not_fit_raises(transfer_uint8):
+    before = _loader_threads()
+    ds = _OneBadSample(tsyn.SyntheticTriplets(12, HW, seed=4), bad=6)
+    loader = tpipe.HostLoader(ds, 4, shuffle=False, workers=3,
+                              transfer_uint8=transfer_uint8)
+    got = []
+    with pytest.raises(ValueError):
+        for batch in loader:
+            got.append(batch)
+    assert len(got) == 1            # the batch before the bad sample's
+    assert _loader_threads() <= before      # the pool has shut down
+
+
+def test_host_loader_many_workers_lose_no_row():
+    """More workers than cores and a short switch interval: the batch's
+    arrays are allocated once, under its lock, and every row lands."""
+    ds = jsyn.SyntheticTriplets(48, HW, seed=8, emit_uint8=True)
+    kw = dict(batch_size=16, seed=4, workers=24, transfer_uint8=True)
+    want = list(jpipe.HostLoader(ds, **kw))
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for _ in range(3):
+            got = list(tpipe.HostLoader(ds, **kw))
+            assert len(got) == len(want) == 3
+            for g, w in zip(got, want):
+                assert_same(g, w)
+    finally:
+        sys.setswitchinterval(interval)
+
+
+def test_host_loader_closed_early_leaves_its_batches():
+    ds = jsyn.SyntheticTriplets(40, HW, seed=6, emit_uint8=True)
+    kw = dict(batch_size=4, seed=3, workers=3, transfer_uint8=True)
+    want = list(jpipe.HostLoader(ds, **kw))[:2]
+    before = _loader_threads()
+    it = iter(tpipe.HostLoader(ds, **kw))
+    got = [next(it), next(it)]
+    held = [{k: v.copy() for k, v in b.items()} for b in got]
+    it.close()
+    assert _loader_threads() <= before
+    for g, h, w in zip(got, held, want):
+        assert_same(g, h)
+        assert_same(g, w)
 
 
 def test_pack_and_encode_identical():

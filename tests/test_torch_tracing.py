@@ -142,6 +142,9 @@ def test_trainer_epoch_records_the_loader_and_step_spans(tmp_path):
     t = trainer()
     _, spans = recorded(t.train, tmp_path)
     assert t.epoch_stats["steps"] == 2
+    # the decode workers assembled both batches
+    assert (t.epoch_stats["assembled_by_workers"],
+            t.epoch_stats["assembled_on_consumer"]) == (2, 0)
     assert len({s[3] for s in spans}) == 1
     loads, steps = named(spans, "train.load"), named(spans, "train.step")
     assert len(steps) == 2 and len(named(spans, "train.log")) == 2

@@ -286,7 +286,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk_steps", type=int, default=0, help=_NO_EFFECT)
     p.add_argument("--put_thread", dest="put_thread",
                    action="store_true", default=False,
-                   help="collate and copy batches on a feeder thread")
+                   help="pin and copy batches on a feeder thread")
     p.add_argument("--multistep_remat", dest="multistep_remat",
                    action="store_true", default=True)
     p.add_argument("--no_multistep_remat", dest="multistep_remat",

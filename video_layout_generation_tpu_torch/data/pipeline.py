@@ -1,39 +1,54 @@
 """Host input pipeline and its copy to the card (the JAX package's
 ``data/pipeline.py``).
 
-``HostLoader`` decodes samples on a thread pool, shuffles per epoch with the
-key ``(seed << 16) ^ epoch``, drops the ragged last batch and collates into
-contiguous NHWC numpy arrays, packed into one uint8 ``packed6`` array when
-``transfer_uint8`` is on: the same batches, in the same order and bytes, as
-the JAX package's ``HostLoader``.
+``HostLoader`` shuffles per epoch with the key ``(seed << 16) ^ epoch`` and
+drops the ragged last batch; its decode workers write each sample into the
+sample's row of contiguous NHWC numpy arrays, packed into one uint8
+``packed6`` (or ``packedseq``) array when ``transfer_uint8`` is on, so that
+the consumer's thread copies nothing: the same batches, in the same order
+and bytes, as the JAX package's ``HostLoader``.
 
 ``DeviceLoader`` is the counterpart of the JAX package's ``ShardedLoader``:
 each host batch is copied into a pinned host buffer and from there to the
 card with ``non_blocking=True`` on a side stream, two batches ahead of the
 consumer; the consumer's stream waits on the copy's event before it reads
-the batch. With ``put_thread`` a feeder thread does the collation, the
-pinned fill and the copy's launch while the consumer launches its step (the
-JAX package's ``put_thread``). Over several ranks each process's
-``HostLoader`` yields its rows of the global batch (``process_index``,
-``process_count``): ``order[r::world]``, so global batch i is rank 0's batch
-i followed by rank 1's, as ``make_array_from_process_local_data`` assembles
-it.
+the batch. With ``put_thread`` a feeder thread takes the loader's batches,
+fills the pinned buffers and launches the copies while the consumer
+launches its step (the JAX package's ``put_thread``). Over several ranks
+each process's ``HostLoader`` yields its rows of the global batch
+(``process_index``, ``process_count``): ``order[r::world]``, so global
+batch i is rank 0's batch i followed by rank 1's, as
+``make_array_from_process_local_data`` assembles it.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import itertools
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
 from ..utils.profiling import annotate
 
-_TRIPLET_KEYS = ("img1", "img2", "img3", "seg1", "seg2", "seg3")
+# the fused uint8 arrays: each field's channels in turn along the last axis;
+# a field in ``_NO_CHANNEL_AXIS`` is one channel without an axis of its own
+_PACKED = {"packedseq": ("imgs", "segs"),
+           "packed6": ("img1", "img2", "img3", "seg1", "seg2", "seg3")}
+_NO_CHANNEL_AXIS = ("segs", "seg3")
+
+
+def _packing(batch: Dict[str, np.ndarray]) -> Optional[str]:
+    """The name of the fused array that ``batch`` packs into, or None."""
+    for name, fields in _PACKED.items():
+        if (set(batch) == set(fields)
+                and all(batch[k].dtype == np.uint8 for k in fields)):
+            return name
+    return None
 
 
 def pack_triplet_batch(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -42,24 +57,19 @@ def pack_triplet_batch(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     copy to the card instead of six; ``train/steps.py:decode_batch`` unpacks
     it there. A uint8 window batch ``{"imgs", "segs"}`` becomes one
     ``packedseq`` (B,T,H,W,4). Other batches pass through."""
-    if (set(batch) == {"imgs", "segs"}
-            and batch["imgs"].dtype == np.uint8
-            and batch["segs"].dtype == np.uint8):
-        return {"packedseq": np.concatenate(
-            [batch["imgs"], batch["segs"][..., None]], axis=-1)}
-    if (set(batch) != set(_TRIPLET_KEYS)
-            or any(batch[k].dtype != np.uint8 for k in _TRIPLET_KEYS)):
+    name = _packing(batch)
+    if name is None:
         return batch
-    b = batch
-    return {"packed6": np.concatenate(
-        [b["img1"], b["img2"], b["img3"], b["seg1"], b["seg2"],
-         b["seg3"][..., None]], axis=-1)}
+    return {name: np.concatenate(
+        [batch[k][..., None] if k in _NO_CHANNEL_AXIS else batch[k]
+         for k in _PACKED[name]], axis=-1)}
 
 
 def encode_batch_uint8(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """Compact-transfer encoding: f32 [0,1] frames -> uint8, layout ids ->
     uint8 (4x fewer bytes to the card). Exact for 8-bit image sources and
-    for class ids < 256."""
+    for class ids < 256. Elementwise, so it encodes one sample as it
+    encodes a batch."""
     out = {}
     for k, v in batch.items():
         if k.startswith("img") and v.dtype == np.float32:
@@ -71,12 +81,81 @@ def encode_batch_uint8(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
+def _row_layout(sample: Dict[str, np.ndarray], pack: bool):
+    """Where each field of ``sample`` goes in a batch row, by the rules of
+    ``pack_triplet_batch`` (with ``pack``) or one array a field: ({field:
+    (array name, index into the row)}, {array name: (row shape, dtype)})."""
+    name = _packing(sample) if pack else None
+    if name is None:
+        return ({k: (k, (Ellipsis,)) for k in sample},
+                {k: (v.shape, v.dtype) for k, v in sample.items()})
+    fields, leads, c = {}, set(), 0
+    for k in _PACKED[name]:
+        v = sample[k]
+        if k in _NO_CHANNEL_AXIS:
+            fields[k] = (name, (Ellipsis, c))
+            leads.add(v.shape)
+            c += 1
+        else:
+            fields[k] = (name, (Ellipsis, slice(c, c + v.shape[-1])))
+            leads.add(v.shape[:-1])
+            c += v.shape[-1]
+    if len(leads) != 1:
+        shapes = {k: sample[k].shape for k in _PACKED[name]}
+        raise ValueError(f"the fields of {name} differ in shape: {shapes}")
+    return fields, {name: (leads.pop() + (c,), np.dtype(np.uint8))}
+
+
+class _Batch:
+    """One batch's arrays, allocated when its first sample arrives and
+    written row by row by the threads that place its samples."""
+
+    def __init__(self, n: int, pack: bool, consumer: int):
+        self.n = n
+        self.pack = pack
+        self.consumer = consumer        # the id of the consumer's thread
+        self.rows_on_consumer = 0
+        self.lock = threading.Lock()
+        self.fields = None
+        self.arrays: Dict[str, np.ndarray] = {}
+
+    def place(self, row: int, sample: Dict[str, np.ndarray]):
+        with self.lock:
+            if self.fields is None:
+                self.fields, shapes = _row_layout(sample, self.pack)
+                self.arrays = {k: np.empty((self.n,) + shape, dtype)
+                               for k, (shape, dtype) in shapes.items()}
+        if set(sample) != set(self.fields):
+            raise ValueError(f"sample fields {sorted(sample)} differ from "
+                             f"the batch's {sorted(self.fields)}")
+        for k, (name, index) in self.fields.items():
+            v, dst = sample[k], self.arrays[name][(row,) + index]
+            if v.shape != dst.shape or v.dtype != dst.dtype:
+                raise ValueError(
+                    f"sample field {k!r} ({v.shape}, {v.dtype}) does not "
+                    f"fit its batch row ({dst.shape}, {dst.dtype})")
+            if (not dst.flags.c_contiguous and v.ndim and v.shape[-1] > 1
+                    and dst.strides[-1] == v.strides[-1] == v.itemsize):
+                # a pixel's channels into a packed row as one element:
+                # numpy moves a strided axis of 3 bytes a byte at a time,
+                # at about twice the cost
+                pixel = np.dtype((np.void, v.shape[-1] * v.itemsize))
+                dst, v = dst.view(pixel), v.view(pixel)
+            dst[...] = v
+        if threading.get_ident() == self.consumer:
+            self.rows_on_consumer += 1
+
+
 class HostLoader:
     """Deterministic shuffling, batching, parallel-decode iterator.
 
-    ``transfer_uint8=True`` re-encodes batches through ``encode_batch_uint8``
-    and packs them (only exact when class ids fit in uint8: the caller gates
-    on ``n_classes``)."""
+    Each decode worker writes its sample into the sample's row of fresh
+    batch arrays, encoded through ``encode_batch_uint8`` and packed by the
+    rules of ``pack_triplet_batch`` when ``transfer_uint8`` is on (only
+    exact when class ids fit in uint8: the caller gates on ``n_classes``);
+    the consumer's thread only submits indices and waits. ``assembled``
+    counts the epoch's batches whose every row a worker placed
+    (``"workers"``) and the others (``"consumer"``)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, workers: int = 4, drop_last: bool = True,
@@ -92,6 +171,7 @@ class HostLoader:
         self.process_count = process_count
         self.transfer_uint8 = transfer_uint8
         self.epoch = 0
+        self.assembled = {"workers": 0, "consumer": 0}
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -117,44 +197,56 @@ class HostLoader:
             return per // self.batch_size
         return -(-per // self.batch_size)
 
+    def _rows(self, order: np.ndarray) -> Iterator:
+        """(batch, row, index) of each sample of ``order``, in turn."""
+        consumer = threading.get_ident()
+        for start in range(0, len(order), self.batch_size):
+            idx = order[start:start + self.batch_size]
+            batch = _Batch(len(idx), self.transfer_uint8, consumer)
+            for row, i in enumerate(idx):
+                yield batch, row, int(i)
+
+    def _place(self, batch: _Batch, row: int, index: int):
+        sample = self.ds[index]
+        with annotate("loader.place"):
+            if self.transfer_uint8:
+                sample = encode_batch_uint8(sample)
+            batch.place(row, sample)
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order = self._order()
         if self.drop_last:
             order = order[: len(self) * self.batch_size]
-        with cf.ThreadPoolExecutor(self.workers) as pool:
-            # a bounded window of decode futures in flight
+        self.assembled = {"workers": 0, "consumer": 0}
+        rows = self._rows(order)
+        pool = cf.ThreadPoolExecutor(self.workers,
+                                     thread_name_prefix="HostLoader")
+        try:
+            # a bounded window of placements in flight, in order
             max_inflight = max(2 * self.workers, self.batch_size)
             window: collections.deque = collections.deque()
-            idx_iter = iter(order)
-            exhausted = False
             while True:
-                batch_buf = []
                 with annotate("loader.gather"):
-                    while len(batch_buf) < self.batch_size:
-                        while not exhausted and len(window) < max_inflight:
-                            try:
-                                i = next(idx_iter)
-                            except StopIteration:
-                                exhausted = True
-                                break
-                            window.append(
-                                pool.submit(self.ds.__getitem__, int(i)))
+                    while True:
+                        for batch, row, i in itertools.islice(
+                                rows, max_inflight - len(window)):
+                            window.append((batch, row, pool.submit(
+                                self._place, batch, row, i)))
                         if not window:
+                            return
+                        batch, row, placed = window.popleft()
+                        placed.result()
+                        if row == batch.n - 1:
                             break
-                        batch_buf.append(window.popleft().result())
-                if len(batch_buf) < self.batch_size:
-                    break
-                yield self._collate(batch_buf)
-            if batch_buf and not self.drop_last:
-                yield self._collate(batch_buf)
+                yield self._hand_over(batch)
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
 
-    def _collate(self, samples) -> Dict[str, np.ndarray]:
+    def _hand_over(self, batch: _Batch) -> Dict[str, np.ndarray]:
         with annotate("loader.collate"):
-            batch = {k: np.stack([s[k] for s in samples])
-                     for k in samples[0]}
-            if self.transfer_uint8:
-                batch = pack_triplet_batch(encode_batch_uint8(batch))
-            return batch
+            by = "consumer" if batch.rows_on_consumer else "workers"
+            self.assembled[by] += 1
+            return batch.arrays
 
 
 class _Slot:
@@ -196,9 +288,9 @@ class DeviceLoader:
     memory: a failure raises. On the CPU the host batch is yielded as
     tensors.
 
-    ``put_thread=True`` moves the host side (the loader's collation, the
-    pinned fill and the copy's launch; on the CPU the conversion to
-    tensors) to a feeder thread, ``PREFETCH`` batches ahead: the same
+    ``put_thread=True`` moves the host side (the wait for the loader's
+    batch, the pinned fill and the copy's launch; on the CPU the conversion
+    to tensors) to a feeder thread, ``PREFETCH`` batches ahead: the same
     batches in the same order. An exception in the thread is raised in the
     consumer; a consumer that stops early stops the thread, which releases
     its buffers."""

@@ -343,6 +343,9 @@ class Trainer:
         else:
             self.train_loader = self._wrap_loader(dataset_train, shuffle=True)
         self.val_loader = self._wrap_loader(dataset_val, shuffle=False)
+        # the train loader's HostLoader (None on the device-data path): its
+        # count of the batches its workers assembled goes into the epoch line
+        self._train_host = getattr(self.train_loader, "loader", None)
 
         # --- observability ----------------------------------------------
         tb_dir = cfg.path if cfg.path and is_primary() else None
@@ -499,11 +502,19 @@ class Trainer:
         self.epoch_stats = dict(steps=steps, wall_s=wall, load_s=load_s,
                                 comp_s=comp_s,
                                 samples=steps * self.cfg.batch_size)
+        assembled = ""
+        if self._train_host is not None:
+            by = self._train_host.assembled
+            self.epoch_stats.update(assembled_by_workers=by["workers"],
+                                    assembled_on_consumer=by["consumer"])
+            assembled = (", batches assembled by the loader's workers %d, "
+                         "on its consumer's thread %d" % (by["workers"],
+                                                          by["consumer"]))
+        rate = self.epoch_stats["samples"] / max(wall, 1e-9)
         self.logger.info(
             "Epoch [%d/%d] %d steps in %.3fs (load %.3fs, comp %.3fs), "
-            "%.1f samples/s" % (self.epoch, self.cfg.epochs, steps, wall,
-                                load_s, comp_s,
-                                self.epoch_stats["samples"] / max(wall, 1e-9)))
+            "%.1f samples/s%s" % (self.epoch, self.cfg.epochs, steps, wall,
+                                  load_s, comp_s, rate, assembled))
         self.logger.debug("epoch drained at step %d" % self.model_state.step)
 
     def _log_per_step(self, per_step: torch.Tensor):
