@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import annotate
 from .init import get_initializer
 from .layers import Conv, ConvTranspose, pad2
 from .norms import get_norm_layer, norm_name, norm_uses_bias
@@ -104,15 +105,18 @@ class ResnetGenerator(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         norms = [self._modules[k] for k in self.norm_names]
-        y = self.Conv_0(pad2(x, 3))
-        y = F.relu(norms[0](y, train, plain))
-        y = F.relu(norms[1](self.Conv_1(y), train, plain))
-        y = F.relu(norms[2](self.Conv_2(y), train, plain))
-        for i in range(self.n_blocks):
-            y = self._modules[f"ResnetBlock_{i}"](y, train, plain)
-        y = F.relu(norms[3](self.ConvTranspose_0(y), train, plain))
-        y = F.relu(norms[4](self.ConvTranspose_1(y), train, plain))
-        y = pad2(y, 3)
-        img = torch.tanh(self.last_conv_img(y).float())
-        seg = self.last_conv_seg(y).float()
+        with annotate("gen.stem"):
+            y = self.Conv_0(pad2(x, 3))
+            y = F.relu(norms[0](y, train, plain))
+            y = F.relu(norms[1](self.Conv_1(y), train, plain))
+            y = F.relu(norms[2](self.Conv_2(y), train, plain))
+        with annotate("gen.blocks"):
+            for i in range(self.n_blocks):
+                y = self._modules[f"ResnetBlock_{i}"](y, train, plain)
+        with annotate("gen.up"):
+            y = F.relu(norms[3](self.ConvTranspose_0(y), train, plain))
+            y = F.relu(norms[4](self.ConvTranspose_1(y), train, plain))
+            y = pad2(y, 3)
+            img = torch.tanh(self.last_conv_img(y).float())
+            seg = self.last_conv_seg(y).float()
         return seg, img
