@@ -43,8 +43,9 @@ Phases:
   3. slice: LayoutPredictor at full width (8-channel GridNet, filters
      32/64/96, 256x256, 8 frames, batch 16, bf16, random weights from
      ``--seed`` passed through the flax weight bridge) answers 3 requests
-     (full, padded, pipelined); the launch counts prove every conv went
-     through the kernels; step 1 is held against the same predictor on the
+     (full, padded, pipelined: eager, CUDA-graph capture, replay); the
+     launch counters of the eager request and the trace's kernel records
+     of a replayed one prove every conv went through the kernels; step 1 is held against the same predictor on the
      plain versions; rollout frames/s, batch-1 latency and a
      torch.profiler breakdown of one b16 request are printed;
   4. validation: the edge-mode validation step at full width (10-channel
@@ -56,7 +57,8 @@ Phases:
      alone, GridNet alone on one shared edge map, and end to end), and
      validation samples/s and a profile of one step are printed;
   5. edge rollout: ``LayoutPredictor(use_edges=True)`` (the same three
-     nets) answers b16 requests of 8 frames; launch counts, step-1
+     nets) answers b16 requests of 8 frames; launch counts (the eager
+     request's counters, a replayed request's trace), step-1
      agreement with the plain versions, frames/s, batch-1 latency and a
      profile of one request are printed;
   6. train: 3 steps of ``make_train_step`` on the full-width pix2pix
@@ -1204,23 +1206,26 @@ def run_slice(torch, kern, seed: int):
     req = make_request(BATCH, seed + 1)
     small = tuple(a[:5] for a in req)
 
+    # the first request runs eagerly and is counted by the wrappers; the
+    # second captures the rollout's CUDA graphs, and it and the third
+    # replay them
     kern.reset_launch_counts()
-    per_request = []
-
-    def counted(name, fn):
-        out, diff = counted_call(torch, kern, name, fn, LAUNCHES_PER_ROLLOUT)
-        per_request.append((name, diff))
-        return out
-
     t0 = time.perf_counter()
-    full = counted("full", lambda: pred.predict(*req))
-    padded = counted("padded n=5", lambda: pred.predict(*small))
-    piped = counted("pipelined",
-                    lambda: list(pred.predict_pipelined([req]))[0])
-    main_s = time.perf_counter() - t0
+    full, _ = counted_call(torch, kern, "full", lambda: pred.predict(*req),
+                           LAUNCHES_PER_ROLLOUT)
     launches = kern.launch_counts()
-    print(f"slice: 3 requests in {main_s:.3f} s; launches per request "
-          f"{per_request}; total {launches}", flush=True)
+    padded = pred.predict(*small)
+    piped = list(pred.predict_pipelined([req]))[0]
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    check(pred.rollouts == {"replayed": 2, "eager": 1, "captured": 1},
+          f"slice: requests served {pred.rollouts}")
+    replayed = replayed_launches(torch, "slice", pred,
+                                 lambda: pred.predict(*req),
+                                 LAUNCHES_PER_ROLLOUT)
+    print(f"slice: 3 requests in {main_s:.3f} s (eager, capture, replay); "
+          f"launches of the eager request by the counters {launches}; of a "
+          f"replayed request by the trace {replayed}", flush=True)
 
     check_output("full", *full, BATCH)
     check_output("padded", *padded, 5)
@@ -1290,6 +1295,30 @@ def kernels_on_card(torch, fn, calls: int = 4):
               flush=True)
     raise SmokeFailure(f"no complete profiler trace in {2 * TRACE_TRIES} "
                        f"tries")
+
+
+# the kernel records of kernels A and B in a trace, by launch counter
+CONV_KERNELS = {"prelu_conv3x3": "conv3x3_mma_kernel",
+                "fused_lateral": "fused_lateral_mma_kernel"}
+
+
+def replayed_launches(torch, name, pred, fn, expected) -> dict:
+    """Kernel A's and B's launches on the card in one call of ``fn``, a
+    request that ``pred`` serves by replaying its CUDA graphs, counted from
+    the trace's kernel records (the wrappers count in Python, so a replay
+    moves the counters only by the capture's count) and held against
+    ``expected``."""
+    before = dict(pred.rollouts)
+    rows = kernels_on_card(torch, fn)
+    check(pred.rollouts["eager"] == before["eager"]
+          and pred.rollouts["captured"] == before["captured"],
+          f"{name}: a traced request was not replayed: {pred.rollouts}")
+    got = {k: sum(n for key, n in rows if sub in key)
+           for k, sub in CONV_KERNELS.items()}
+    want = {k: expected[k] for k in CONV_KERNELS}
+    check(got == want, f"{name}: a replayed request launched {got} on the "
+          f"card, expected {want}")
+    return got
 
 
 IN_KERNELS = ("instance_norm_fwd_kernel", "instance_norm_bwd_kernel")
@@ -1551,18 +1580,24 @@ def run_edge_rollout(torch, kern, weights, seed: int):
     req = make_request(BATCH, seed + 31)
     small = tuple(a[:5] for a in req)
 
+    # eager, then the capture and its replay, as in the slice
     kern.reset_launch_counts()
     t0 = time.perf_counter()
     full, _ = counted_call(torch, kern, "edge full",
                            lambda: pred.predict(*req),
                            LAUNCHES_PER_EDGE_ROLLOUT)
-    padded, _ = counted_call(torch, kern, "edge padded n=5",
-                             lambda: pred.predict(*small),
-                             LAUNCHES_PER_EDGE_ROLLOUT)
-    main_s = time.perf_counter() - t0
     launches = kern.launch_counts()
-    print(f"edge rollout: 2 requests in {main_s:.3f} s; launches per request "
-          f"{LAUNCHES_PER_EDGE_ROLLOUT}; total {launches}", flush=True)
+    padded = pred.predict(*small)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    check(pred.rollouts == {"replayed": 1, "eager": 1, "captured": 1},
+          f"edge rollout: requests served {pred.rollouts}")
+    replayed = replayed_launches(torch, "edge rollout", pred,
+                                 lambda: pred.predict(*req),
+                                 LAUNCHES_PER_EDGE_ROLLOUT)
+    print(f"edge rollout: 2 requests in {main_s:.3f} s (eager, capture); "
+          f"launches of the eager request by the counters {launches}; of a "
+          f"replayed request by the trace {replayed}", flush=True)
     check_output("edge full", *full, BATCH)
     check_output("edge padded", *padded, 5)
     check(np.array_equal(padded[0], full[0][:5])
@@ -4542,7 +4577,9 @@ def main(argv=None) -> int:
     if EVENT_TIMED:
         print(f"timing: {len(EVENT_TIMED)} timings taken with CUDA events "
               f"(incomplete profiler traces)", flush=True)
-    # each path: counts set to 0 just before it, read just after it
+    # each path: counts set to 0 just before it, read just after it (the
+    # rollouts: after their eager request; replays are counted from the
+    # trace, in replayed_launches)
     by_path = {}
     by_path["no-edge rollout"], slice_stats = run_slice(torch, kern,
                                                         args.seed)

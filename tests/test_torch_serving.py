@@ -75,6 +75,21 @@ def test_pipelined_and_many_equal_predict(params):
         pred.predict_pipelined(iter(reqs), depth=0)
 
 
+def test_cpu_predictor_never_captures(params):
+    """CUDA graphs only on a card with the kernels: on the CPU every request
+    runs eagerly, the second and later ones of a shape too, and a request
+    served again gets the same answer."""
+    pred = LayoutPredictor("GridNet", params, device="cpu",
+                           **dict(KW, n_frames=2))
+    reqs = [_request(2, seed=3), _request(4, seed=4), _request(2, seed=3)]
+    outs = [pred.predict(*r) for r in reqs]
+    assert pred.rollouts == {"replayed": 0, "eager": 3, "captured": 0}
+    assert all(rep.graphs == {} and rep.stream is None
+               for rep in pred._replicas)
+    np.testing.assert_array_equal(outs[0][0], outs[2][0])
+    np.testing.assert_array_equal(outs[0][1], outs[2][1])
+
+
 def test_predict_rejects_oversized_batch(params):
     pred = LayoutPredictor("GridNet", params, device="cpu",
                            **dict(KW, batch=2, n_frames=1))

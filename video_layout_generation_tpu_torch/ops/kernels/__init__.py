@@ -28,7 +28,18 @@ def launch_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
+def add_launch_counts(moved: dict) -> None:
+    """Add ``moved`` (counter name -> launches, negative to take away) to
+    the counters. The wrappers count in Python, so a CUDA graph's capture
+    moves them though it launches nothing, and its replay launches without
+    moving them: the graph's owner takes the capture's count away and adds
+    it on every replay."""
+    for name, k in moved.items():
+        fn, attr = COUNTERS[name]
+        setattr(fn, attr, getattr(fn, attr) + k)
+
+
 __all__ = ["prelu_conv3x3", "prelu_conv3x3_plain", "fused_lateral",
            "fused_lateral_plain", "ssim_loss", "ssim_planes",
            "ssim_planes_plain", "instance_norm", "reset_launch_counts",
-           "launch_counts"]
+           "launch_counts", "add_launch_counts"]

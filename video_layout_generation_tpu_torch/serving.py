@@ -20,9 +20,24 @@ request, launched on that device, and the rows are gathered in order on
 the first device before the one fetch. A mesh of one device is the path
 without a mesh.
 
+On a CUDA device with the kernels (not ``plain``) the rollout is replayed
+from CUDA graphs: the first request of a packed input shape and dtype runs
+eagerly on the stream the graphs are captured on (it builds the kernels,
+fills the caches of constants and interpolation matrices and lets the
+libraries choose their algorithms), the second captures a chain of graphs in one memory pool, one for the
+input stage (the uint8 cast, the normalisation, the seed frames' edges)
+and one a generated frame, each reading the static outputs of the one
+before, and every later one uploads into the chain's static input and
+replays it. The frames are stacked and packed eagerly after the replay,
+so a result outside the pool outlives the next request's replay. A
+capture that fails raises. ``rollouts`` counts the requests served by
+replay and by an eager run, and the captures.
+
 Under a profiler each request records ``serve.request``, holding
 ``serve.pack``, ``serve.upload``, ``serve.rollout`` (the rollout's
-``rollout.frame`` spans), ``serve.fetch`` and ``serve.decode``.
+``rollout.frame`` spans), ``serve.fetch`` and ``serve.decode``. A replayed
+``rollout.frame`` is the host's replay of that frame's graph: it holds no
+``rollout.step`` or ``rollout.edge``.
 
 Example:
     from video_layout_generation_tpu_torch.io.weights import params_from_flax
@@ -45,6 +60,7 @@ from .device import require_bf16, resolve_device
 from .io.checkpoint import CheckpointManager
 from .io.weights import params_from_flax
 from .models import get_model_cls
+from .ops.kernels import add_launch_counts, launch_counts
 from .parallel.mesh import shard_batch
 from .train.assemble import denormalize_image, normalize_image
 from .train.rollout import make_rollout_fn
@@ -100,17 +116,20 @@ class LayoutPredictor:
         self._rollout = make_rollout_fn(
             self.model, self.hned, n_frames=n_frames, use_edges=use_edges,
             upsample=upsample, plain=plain, edge_scale=edge_scale)
-        # (device, rollout) of each replica, the first one's nets the above
-        self._replicas = [(self.device, self._rollout)]
+        # uint8 both ways; n_classes > 256 would wrap ids in uint8
+        self._quantized_serve = quantize_transfer and n_classes <= 256
+        # one a device, the first one's nets the above
+        self._replicas = [_Replica(self.device, self._rollout, self._inputs,
+                                   plain)]
         for dev in devices[1:]:
             model = copy.deepcopy(self.model).to(dev)
             hned_r = (copy.deepcopy(self.hned).to(dev)
                       if self.hned is not None else None)
-            self._replicas.append((dev, make_rollout_fn(
+            self._replicas.append(_Replica(dev, make_rollout_fn(
                 model, hned_r, n_frames=n_frames, use_edges=use_edges,
-                upsample=upsample, plain=plain, edge_scale=edge_scale)))
-        # uint8 both ways; n_classes > 256 would wrap ids in uint8
-        self._quantized_serve = quantize_transfer and n_classes <= 256
+                upsample=upsample, plain=plain, edge_scale=edge_scale),
+                self._inputs, plain))
+        self.rollouts = {"replayed": 0, "eager": 0, "captured": 0}
 
     @classmethod
     def from_checkpoint(cls, path: str, arch: str = "GridNet",
@@ -123,31 +142,29 @@ class LayoutPredictor:
             arch = tree["arch"]
         return cls(arch, tree["params"], **kw)
 
-    def _rollout_on(self, dev, rollout, x: torch.Tensor):
-        """The rollout of packed rows ``x`` (on ``dev``), launched there."""
-        on_card = (torch.cuda.device(dev) if dev.type == "cuda"
-                   else contextlib.nullcontext())
-        with on_card:
-            if self._quantized_serve:
-                x = x.float()
-                x = torch.cat([x[..., 0:6] / 255.0, x[..., 6:8]], dim=-1)
-            i1 = normalize_image(x[..., 0:3])
-            i2 = normalize_image(x[..., 3:6])
-            s1, s2 = x[..., 6:7], x[..., 7:8]
-            return rollout(i1, i2, s1, s2)
+    def _inputs(self, x: torch.Tensor):
+        """The rollout's seeds (img1, img2, seg1, seg2) from packed rows."""
+        if self._quantized_serve:
+            x = x.float()
+            x = torch.cat([x[..., 0:6] / 255.0, x[..., 6:8]], dim=-1)
+        i1 = normalize_image(x[..., 0:3])
+        i2 = normalize_image(x[..., 3:6])
+        return i1, i2, x[..., 6:7], x[..., 7:8]
 
     @torch.inference_mode()
     def _serve(self, x: np.ndarray, n: int) -> torch.Tensor:
         """One packed request on the device(s) -> one packed result on the
         first one."""
         with annotate("serve.upload"):
-            shards = ([torch.from_numpy(x).to(self.device)]
+            shards = ([self._replicas[0].upload(torch.from_numpy(x))]
                       if self.mesh is None
-                      else [sh["x"] for sh in shard_batch({"x": x},
-                                                          self.mesh)])
+                      else [rep.upload(sh["x"]) for rep, sh in zip(
+                          self._replicas, shard_batch({"x": x}, self.mesh))])
         with annotate("serve.rollout"):
-            outs = [self._rollout_on(dev, rollout, part)
-                    for (dev, rollout), part in zip(self._replicas, shards)]
+            outs, how = zip(*(rep.run(part) for rep, part
+                              in zip(self._replicas, shards)))
+            self.rollouts["captured"] += how.count("captured")
+            self.rollouts["eager" if "eager" in how else "replayed"] += 1
             if len(outs) == 1:
                 imgs, segs = outs[0]
             else:   # the replicas' rows, in order
@@ -248,3 +265,97 @@ class LayoutPredictor:
                 inflight.append(self._enqueue(*req))
         while inflight:
             yield self._fetch(inflight.popleft())
+
+
+class _Replica:
+    """One device's rollout, and the CUDA graphs of it (``_RolloutGraphs``)
+    for each packed input shape and dtype seen twice, where the device is a
+    card and the kernels run (not ``plain``)."""
+
+    def __init__(self, dev: torch.device, rollout, inputs, plain: bool):
+        self.dev, self.rollout, self.inputs = dev, rollout, inputs
+        # the stream the graphs are captured on, where there are graphs;
+        # the eager rollouts run on it too, so that a capture follows the
+        # libraries' first use of the stream
+        self.stream = (torch.cuda.Stream(dev)
+                       if dev.type == "cuda" and not plain else None)
+        self.seen = set()
+        self.graphs = {}
+
+    def upload(self, x: torch.Tensor) -> torch.Tensor:
+        """Packed rows ``x`` on this device: into the static input of the
+        graphs of their shape and dtype where there are graphs."""
+        g = self.graphs.get((tuple(x.shape), x.dtype))
+        return x.to(self.dev) if g is None else g.x.copy_(x)
+
+    def run(self, x: torch.Tensor):
+        """((frames, layouts), how) of packed rows ``x`` on this device;
+        ``how`` is "eager", "captured" (then replayed) or "replayed"."""
+        key = (tuple(x.shape), x.dtype)
+        on_card = (torch.cuda.device(self.dev) if self.dev.type == "cuda"
+                   else contextlib.nullcontext())
+        with on_card:
+            g = self.graphs.get(key)
+            how = "replayed"
+            if g is None and self.stream is not None and key in self.seen:
+                g = self.graphs[key] = _RolloutGraphs(
+                    x, self.inputs, self.rollout, self.stream)
+                how = "captured"
+            self.seen.add(key)
+            if g is not None:
+                return self.rollout.finish(*g.replay()), how
+            if self.stream is None:
+                return self.rollout(*self.inputs(x)), "eager"
+            here = torch.cuda.current_stream()
+            self.stream.wait_stream(here)
+            with torch.cuda.stream(self.stream):
+                out = self.rollout(*self.inputs(x))
+            here.wait_stream(self.stream)
+            return out, "eager"
+
+
+class _RolloutGraphs:
+    """A rollout at one packed input as a chain of CUDA graphs in one memory
+    pool: the input stage (``inputs``, then the rollout's ``start``), then
+    one graph for each ``frame``, each reading the static outputs of the
+    one before, so the carry needs no copies. ``x`` (the capture's
+    request) becomes the static input that later uploads land in.
+
+    Blocks that one capture frees, a later one may reuse: the chain is
+    replayed whole, in the order of capture, on one stream. The launch
+    counters move on every replay by what the graph launches."""
+
+    def __init__(self, x: torch.Tensor, inputs, rollout,
+                 stream: torch.cuda.Stream):
+        self.x = x
+        pool = torch.cuda.graph_pool_handle()
+
+        def capture(fn, *args):
+            g = torch.cuda.CUDAGraph()
+            before = launch_counts()
+            with torch.cuda.graph(g, pool=pool, stream=stream):
+                out = fn(*args)
+            moved = {k: v - before[k] for k, v in launch_counts().items()
+                     if v != before[k]}
+            add_launch_counts({k: -v for k, v in moved.items()})
+            return (g, moved), out
+
+        self.seeds, carry = capture(lambda: rollout.start(*inputs(x)))
+        self.frames, self.imgs, self.segs = [], [], []
+        for _ in range(rollout.n_frames):
+            graph, (carry, img, seg) = capture(rollout.frame, carry)
+            self.frames.append(graph)
+            self.imgs.append(img)
+            self.segs.append(seg)
+
+    def replay(self):
+        """Replay the chain on the current stream; the static frames and
+        layouts, which the next replay overwrites."""
+        g, moved = self.seeds
+        g.replay()
+        add_launch_counts(moved)
+        for g, moved in self.frames:
+            with annotate("rollout.frame"):
+                g.replay()
+                add_launch_counts(moved)
+        return self.imgs, self.segs

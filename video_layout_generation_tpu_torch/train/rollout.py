@@ -21,7 +21,8 @@ The frame loop is a Python loop: PyTorch runs eagerly, and every 3x3 conv
 inside it is one launch of kernel A or kernel B. Under a profiler each
 generated frame records a ``rollout.frame`` span holding ``rollout.step``
 (GridNet) and, with edges, ``rollout.edge`` (HNED, also recorded for the
-two seed frames).
+two seed frames). Serving on a card replays the loop's stages from CUDA
+graphs instead (``serving.py``); the trainer runs it eagerly.
 """
 
 from __future__ import annotations
@@ -50,6 +51,13 @@ def make_rollout_fn(model: Callable, hned: Optional[Callable] = None,
     img1/img2: (N, H, W, 3) ImageNet-normalized seed frames, older first;
     seg1/seg2: (N, H, W, 1) float class ids. Returns imgs (N, T, H, W, 3)
     normalized and segs (N, T, H, W, 1) float ids, both f32.
+
+    The rollout's stages are its attributes: ``start(img1, img2, seg1,
+    seg2) -> carry``, ``frame(carry) -> (carry, frame, layout)``, called
+    ``n_frames`` times, and ``finish(frames, layouts)``. ``rollout`` is
+    ``finish`` of the frames, each in its ``rollout.frame`` span; serving
+    captures ``start`` and each ``frame`` as CUDA graphs
+    (``serving.py``).
     """
     if use_edges and hned is None:
         raise ValueError("use_edges=True requires an HNED model")
@@ -82,42 +90,46 @@ def make_rollout_fn(model: Callable, hned: Optional[Callable] = None,
             seg_next = seg_logits.float().argmax(dim=-1, keepdim=True)
             return img_n, seg_next
 
-    def rollout_edges(img1, img2, seg1, seg2):
-        f_old, f_new = img1.float(), img2.float()
-        s_old, s_new = seg1.float(), seg2.float()
-        e_old, e_new = edge(f_old), edge(f_new)
-        imgs, segs = [], []
-        for _ in range(n_frames):
-            with annotate("rollout.frame"):
-                img_n, seg_next = step(assemble_model_input(
-                    s_old, f_old, f_new, s_new, e_old, e_new))
-                seg_next = seg_next.float()
-                imgs.append(img_n)
-                segs.append(seg_next)
-                f_old, f_new, s_old, s_new = f_new, img_n, s_new, seg_next
-                e_old, e_new = e_new, edge(img_n)
-        return imgs, segs
-
-    def rollout_no_edges(img1, img2, seg1, seg2):
+    def start(img1, img2, seg1, seg2) -> tuple:
+        """The carry of the first frame: the seeds (and their edges)."""
+        if use_edges:
+            f_old, f_new = img1.float(), img2.float()
+            return (f_old, f_new, seg1.float(), seg2.float(), edge(f_old),
+                    edge(f_new))
         dt = model.dtype or img1.dtype
-        f_old, f_new = img1.to(dt), img2.to(dt)
-        s_old, s_new = seg1.to(dt), seg2.to(dt)
-        imgs, segs = [], []
-        for _ in range(n_frames):
-            with annotate("rollout.frame"):
-                img_n, seg_next = step(assemble_model_input(
-                    s_old, f_old, f_new, s_new))
-                img_n, seg_next = img_n.to(dt), seg_next.to(dt)
-                imgs.append(img_n)
-                segs.append(seg_next)
-                f_old, f_new, s_old, s_new = f_new, img_n, s_new, seg_next
-        return imgs, segs
+        return tuple(t.to(dt) for t in (img1, img2, seg1, seg2))
 
-    def rollout(img1, img2, seg1, seg2
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        fn = rollout_edges if use_edges else rollout_no_edges
-        imgs, segs = fn(img1, img2, seg1, seg2)
+    def frame(carry: tuple) -> tuple:
+        """One generated frame: (the next carry, its frame, its layout)."""
+        if use_edges:
+            f_old, f_new, s_old, s_new, e_old, e_new = carry
+            img_n, seg_next = step(assemble_model_input(
+                s_old, f_old, f_new, s_new, e_old, e_new))
+            seg_next = seg_next.float()
+            return ((f_new, img_n, s_new, seg_next, e_new, edge(img_n)),
+                    img_n, seg_next)
+        f_old, f_new, s_old, s_new = carry
+        img_n, seg_next = step(assemble_model_input(s_old, f_old, f_new,
+                                                    s_new))
+        img_n, seg_next = img_n.to(f_new.dtype), seg_next.to(f_new.dtype)
+        return (f_new, img_n, s_new, seg_next), img_n, seg_next
+
+    def finish(imgs, segs) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The frames and layouts stacked along T, in f32."""
         return (torch.stack(imgs, dim=1).float(),
                 torch.stack(segs, dim=1).float())
 
+    def rollout(img1, img2, seg1, seg2
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        carry = start(img1, img2, seg1, seg2)
+        imgs, segs = [], []
+        for _ in range(n_frames):
+            with annotate("rollout.frame"):
+                carry, img_n, seg_next = frame(carry)
+            imgs.append(img_n)
+            segs.append(seg_next)
+        return finish(imgs, segs)
+
+    rollout.start, rollout.frame, rollout.finish = start, frame, finish
+    rollout.n_frames = n_frames
     return rollout
