@@ -49,7 +49,7 @@ Phases:
      plain versions; rollout frames/s, batch-1 latency and a
      torch.profiler breakdown of one b16 request are printed;
   4. validation: the edge-mode validation step at full width (10-channel
-     GridNet + HNED + VGG19 ``CombinedLoss.eval_variant()``, all bf16 with
+     GridNet + HNED + VGG19 ``CombinedLoss``, all bf16 with
      f32 loss islands, random weights from ``--seed`` through the weight
      bridges) runs ``validate`` over 3 uint8 ``packed6`` batches of 16; the
      launch counts of every step are asserted, the loss terms, layouts and
@@ -220,6 +220,9 @@ IN_PER_GEN, IN_PER_DISC = 5 + 2 * N_BLOCKS, 3
 LAUNCHES_PER_TRAIN_STEP = dict(
     NO_LAUNCHES, prelu_conv3x3=2 * 13 + 2 * 12 + 12,
     instance_norm_fwd=IN_PER_GEN, instance_norm_bwd=IN_PER_GEN)
+# the same step under kernels.plain() with the loss under plain(False):
+# VGG19's forwards and its data gradient on kernel A, nothing else
+LAUNCHES_VGG_PINNED_STEP = dict(NO_LAUNCHES, prelu_conv3x3=2 * 12 + 12)
 # GAN step: D on the detached fake pair and the real pair (forward and
 # backward), then D on the fake pair for G (forward and backward)
 LAUNCHES_PER_GAN_STEP = dict(
@@ -1237,7 +1240,8 @@ def run_slice(torch, kern, seed: int):
           and np.array_equal(piped[1], full[1]),
           "pipelined request differs from predict")
 
-    ref = LayoutPredictor("GridNet", flat, plain=True, **kw).predict(*req)
+    with kern.plain():
+        ref = LayoutPredictor("GridNet", flat, **kw).predict(*req)
     agree, img_err = [], []
     for t in range(FRAMES):
         agree.append(float((full[1][:, t] == ref[1][:, t]).mean()))
@@ -1449,12 +1453,9 @@ def run_validation(torch, kern, weights, seed: int):
     hned.load_state_dict(params_from_flax(weights["hned"]), strict=True)
     # the nets are built on the CPU; make_eval_step moves them to the card,
     # and CombinedLoss.create picks bf16 there
-    combined = CombinedLoss.create(params=weights["vgg"],
-                                   device=DEVICE).eval_variant()
+    combined = CombinedLoss.create(params=weights["vgg"], device=DEVICE)
     step = make_eval_step(model, hned, combined, n_classes=N_CLASSES,
                           device=DEVICE)
-    plain_step = make_eval_step(model, hned, combined, n_classes=N_CLASSES,
-                                plain=True, device=DEVICE)
     check(all(p.device.type == "cuda" for net in
               (model, hned, combined.vgg_model) for p in net.parameters()),
           "make_eval_step left a net off the card")
@@ -1491,7 +1492,8 @@ def run_validation(torch, kern, weights, seed: int):
     check(first["cm_total"] == n_px,
           f"confusion total {first['cm_total']} != {n_px}")
 
-    ref_metrics, ref_ids, ref_img = plain_step(batches[0])
+    with kern.plain():
+        ref_metrics, ref_ids, ref_img = step(batches[0])
     terms = {}
     for k in ("loss", "loss_l1", "loss_style", "loss_seg"):
         a, b = float(metrics[k]), float(ref_metrics[k])
@@ -1507,11 +1509,12 @@ def run_validation(torch, kern, weights, seed: int):
     with torch.no_grad():
         batch0 = decode_batch({"packed6": torch.from_numpy(
             batches[0]["packed6"]).to(DEVICE)})
-        edge_err = float((hned(batch0["img1"])[-1]
-                          - hned(batch0["img1"], plain=True)[-1]).abs().max())
-        x, _ = prepare_inputs(hned, batch0, plain=True)
+        edge_k = hned(batch0["img1"])[-1]
+        with kern.plain():
+            edge_err = float((edge_k - hned(batch0["img1"])[-1]).abs().max())
+            x, _ = prepare_inputs(hned, batch0)
+            seg_p, out_p = model(x)
         seg_k, out_k = model(x)
-        seg_p, out_p = model(x, plain=True)
         out_k = normalize_model_output(out_k.float())
         out_p = normalize_model_output(out_p.float())
     shared_img_err = float((out_k - out_p).abs().max() / out_p.abs().max())
@@ -1604,7 +1607,8 @@ def run_edge_rollout(torch, kern, weights, seed: int):
           and np.array_equal(padded[1], full[1][:5]),
           "padded edge request differs from the full request's first 5")
 
-    ref = predictor(plain=True).predict(*req)
+    with kern.plain():
+        ref = predictor().predict(*req)
     agree, img_err, img_mean_err, img_share = [], [], [], []
     for t in range(FRAMES):
         agree.append(float((full[1][:, t] == ref[1][:, t]).mean()))
@@ -1684,23 +1688,26 @@ def pix2pix_weights(seed: int):
                           seed + 41, 2.0))
 
 
-def build_pix2pix(torch, weights, with_disc: bool, vgg_plain=None):
+def build_pix2pix(torch, weights, with_disc: bool, vgg_kernels=False):
     """(generator, discriminator or None, HNED, CombinedLoss), bf16
-    activations, weights through the bridge. ``vgg_plain=False`` pins the
-    VGG19 trunk to kernel A whatever the step asks for. The nets are built
-    on the CPU; the step factories move them to the card."""
+    activations, weights through the bridge. ``vgg_kernels`` runs the loss
+    under ``kernels.plain(False)``: its VGG19 trunk on kernel A inside a
+    step under ``kernels.plain()``, forward and data gradient (the data
+    gradient's Function keeps its forward's route in the backward). The
+    nets are built on the CPU; the step factories move them to the card."""
     from video_layout_generation_tpu_torch.io.weights import params_from_flax
     from video_layout_generation_tpu_torch.losses import CombinedLoss
     from video_layout_generation_tpu_torch.models import (
         HNED, NLayerDiscriminator, ResnetGenerator)
+    from video_layout_generation_tpu_torch.ops import kernels
 
     class PinnedLoss:
-        def __init__(self, inner, plain):
-            self.inner, self.pinned = inner, plain
-            self.vgg_model = inner.vgg_model
+        def __init__(self, inner):
+            self.inner, self.vgg_model = inner, inner.vgg_model
 
-        def __call__(self, output, target, plain=False):
-            return self.inner(output, target, plain=self.pinned)
+        def __call__(self, output, target):
+            with kernels.plain(False):
+                return self.inner(output, target)
 
     dt = torch.bfloat16
     gen = ResnetGenerator(input_nc=10, ngf=NGF, n_blocks=N_BLOCKS,
@@ -1714,8 +1721,8 @@ def build_pix2pix(torch, weights, with_disc: bool, vgg_plain=None):
     hned = HNED(dtype=dt)
     hned.load_state_dict(params_from_flax(weights["hned"]), strict=True)
     combined = CombinedLoss.create(params=weights["vgg"], device=DEVICE)
-    if vgg_plain is not None:
-        combined = PinnedLoss(combined, vgg_plain)
+    if vgg_kernels:
+        combined = PinnedLoss(combined)
     return gen, disc, hned, combined
 
 
@@ -1871,17 +1878,24 @@ TRAIN_TERMS = ("loss", "loss_l1", "loss_style", "loss_seg")
 GAN_TERMS = TRAIN_TERMS + ("loss_gan", "loss_d", "loss_d_fake", "loss_d_real")
 
 
-def one_train_step(torch, weights, batch, seed, plain, **build_kw):
-    """Step 1 of a fresh generator through ``make_train_step``: its metrics
-    and the gradients it applied."""
+def one_train_step(torch, kern, weights, batch, seed, vgg_kernels=False):
+    """Step 1 of a fresh generator through ``make_train_step`` under
+    ``kernels.plain()`` (with ``vgg_kernels`` its VGG19 trunk on kernel A,
+    ``build_pix2pix``): its metrics, the gradients it applied and the
+    launches it made, forward and backward."""
     from video_layout_generation_tpu_torch.train.steps import make_train_step
-    gen, _, hned, combined = build_pix2pix(torch, weights, False, **build_kw)
+    gen, _, hned, combined = build_pix2pix(torch, weights, False, vgg_kernels)
     step = make_train_step(
-        gen, hned, combined, flip_mode="batch", plain=plain, device=DEVICE,
+        gen, hned, combined, flip_mode="batch", device=DEVICE,
         generator=torch.Generator().manual_seed(seed + 50))
     state = recording_state(gen, adam())
-    _, metrics = step(state, batch)
-    return metrics, state.last_grads
+    name = "train step 1, " + ("VGG19 through kernel A" if vgg_kernels
+                               else "plain")
+    with kern.plain():
+        (_, metrics), moved = counted_call(
+            torch, kern, name, lambda: step(state, batch),
+            LAUNCHES_VGG_PINNED_STEP if vgg_kernels else NO_LAUNCHES)
+    return metrics, state.last_grads, moved
 
 
 def run_train(torch, kern, weights, seed: int):
@@ -1920,14 +1934,15 @@ def run_train(torch, kern, weights, seed: int):
     check_moved(torch, "train", start, gen, dead)
 
     # end to end in bf16 against the plain step
-    ref_metrics, ref_grads = one_train_step(torch, weights, batches[0], seed,
-                                            plain=True)
+    ref_metrics, ref_grads, _ = one_train_step(torch, kern, weights,
+                                               batches[0], seed)
     terms = compare_terms("train step 1", first_metrics, ref_metrics,
                           TRAIN_TERMS)
     e2e = grad_errors(torch, "train step 1", first_grads, ref_grads, dead)
     # kernel A's data gradient alone: VGG19 through A, the rest plain
-    _, vgg_grads = one_train_step(torch, weights, batches[0], seed,
-                                  plain=True, vgg_plain=False)
+    _, vgg_grads, vgg_launches = one_train_step(torch, kern, weights,
+                                                batches[0], seed,
+                                                vgg_kernels=True)
     vgg = grad_errors(torch, "train step 1, VGG19 through kernel A",
                       vgg_grads, ref_grads, dead)
     del ref_grads, vgg_grads
@@ -1943,6 +1958,7 @@ def run_train(torch, kern, weights, seed: int):
           f"{len(first_grads) - len(dead)} tensors ({len(dead)} biases before "
           "an InstanceNorm left out): end to end " + json.dumps(e2e)
           + "; VGG19 through kernel A alone " + json.dumps(vgg)
+          + f", its step's launches {json.dumps(vgg_launches)}"
           + f"; the {IN_PER_GEN} InstanceNorm calls of a step on their own "
           "tensors, kernel vs plain, largest normalized error "
           + json.dumps(local), flush=True)
@@ -1971,13 +1987,13 @@ def run_train(torch, kern, weights, seed: int):
                           peak_gib=peak)
 
 
-def build_gan(torch, weights, seed, plain, gan_mode="lsgan"):
+def build_gan(torch, weights, seed, gan_mode="lsgan"):
     from video_layout_generation_tpu_torch.train.gan import (
         GanTrainState, make_gan_train_step)
     gen, disc, hned, combined = build_pix2pix(torch, weights, True)
     step = make_gan_train_step(
         gen, disc, hned, combined, gan_mode=gan_mode, flip_mode="batch",
-        plain=plain, device=DEVICE,
+        device=DEVICE,
         generator=torch.Generator().manual_seed(seed + 70),
         gp_generator=torch.Generator(device=DEVICE).manual_seed(seed + 71))
     state = GanTrainState(gen=recording_state(gen, adam()),
@@ -1986,7 +2002,7 @@ def build_gan(torch, weights, seed, plain, gan_mode="lsgan"):
 
 
 def run_gan(torch, kern, weights, seed: int):
-    gen, disc, step, state = build_gan(torch, weights, seed, False)
+    gen, disc, step, state = build_gan(torch, weights, seed)
     batches = [make_packed_batch(BATCH, seed + 80 + i)
                for i in range(GAN_STEPS)]
     start_g, start_d = snapshot(gen), snapshot(disc)
@@ -2014,8 +2030,9 @@ def run_gan(torch, kern, weights, seed: int):
     check_moved(torch, "GAN train, generator", start_g, gen, dead_g)
     check_moved(torch, "GAN train, discriminator", start_d, disc, dead_d)
 
-    _, _, ref_step, ref_state = build_gan(torch, weights, seed, True)
-    _, ref_metrics = ref_step(ref_state, batches[0])
+    _, _, ref_step, ref_state = build_gan(torch, weights, seed)
+    with kern.plain():
+        _, ref_metrics = ref_step(ref_state, batches[0])
     ref = (ref_metrics, ref_state.gen.last_grads, ref_state.disc.last_grads)
     del ref_step, ref_state
     terms = compare_terms("GAN step 1", first[0], ref[0], GAN_TERMS)
@@ -2054,7 +2071,7 @@ def run_gan(torch, kern, weights, seed: int):
 
     # one WGAN-GP step: the penalty differentiates the critic's input
     # gradient, so it runs the InstanceNorm backward's own backward
-    _, _, gp_step, gp_state = build_gan(torch, weights, seed, False, "wgangp")
+    _, _, gp_step, gp_state = build_gan(torch, weights, seed, "wgangp")
     before = kern.launch_counts()
     _, m = gp_step(gp_state, make_packed_batch(WGANGP_BATCH, seed + 90))
     torch.cuda.synchronize()
@@ -2078,11 +2095,8 @@ def run_gan(torch, kern, weights, seed: int):
 def run_resnet_validation(torch, kern, weights, seed: int):
     from video_layout_generation_tpu_torch.train.steps import make_eval_step
     gen, _, hned, combined = build_pix2pix(torch, weights, False)
-    step = make_eval_step(gen, hned, combined.eval_variant(),
-                          n_classes=N_CLASSES, device=DEVICE)
-    plain_step = make_eval_step(gen, hned, combined.eval_variant(),
-                                n_classes=N_CLASSES, plain=True,
-                                device=DEVICE)
+    step = make_eval_step(gen, hned, combined, n_classes=N_CLASSES,
+                          device=DEVICE)
     batch = make_packed_batch(BATCH, seed + 95)
     kern.reset_launch_counts()
     (metrics, seg_ids, img_n), _ = counted_call(
@@ -2097,7 +2111,8 @@ def run_resnet_validation(torch, kern, weights, seed: int):
           "non-finite frame")
     check(float(metrics["cm"].sum()) == BATCH * HW[0] * HW[1],
           "ResnetGenerator eval: confusion total")
-    ref_metrics, ref_ids, ref_img = plain_step(batch)
+    with kern.plain():
+        ref_metrics, ref_ids, ref_img = step(batch)
     terms = compare_terms("ResnetGenerator eval step", metrics, ref_metrics,
                           TRAIN_TERMS)
     agree = float((seg_ids == ref_ids).float().mean())
@@ -2166,13 +2181,13 @@ def frozen_nets(torch, weights):
     return hned, CombinedLoss.create(params=weights["vgg"], device=DEVICE)
 
 
-def gridnet_step(torch, weights, flat, arch, seed, plain=False):
+def gridnet_step(torch, weights, flat, arch, seed):
     """(net, step, state) of ``make_train_step`` on a fresh net."""
     from video_layout_generation_tpu_torch.train.steps import make_train_step
     net = build_gridnet(torch, arch, flat)
     hned, combined = frozen_nets(torch, weights)
     step = make_train_step(
-        net, hned, combined, flip_mode="batch", plain=plain, device=DEVICE,
+        net, hned, combined, flip_mode="batch", device=DEVICE,
         generator=torch.Generator().manual_seed(seed + 120))
     return net, step, recording_state(net, adam())
 
@@ -2241,8 +2256,9 @@ def run_gridnet_train(torch, kern, weights, train_flats, seed: int):
     stats = {}
     for arch, r in runs.items():
         _, ref_step, ref_state = gridnet_step(
-            torch, weights, train_flats[arch], arch, seed, plain=True)
-        _, ref_metrics = ref_step(ref_state, batches[0])
+            torch, weights, train_flats[arch], arch, seed)
+        with kern.plain():
+            _, ref_metrics = ref_step(ref_state, batches[0])
         ref_grads = ref_state.last_grads
         del ref_step, ref_state
         metrics, grads = r["first"]
@@ -2299,7 +2315,7 @@ def run_gridnet_gan(torch, kern, weights, train_flats, seed: int):
     from video_layout_generation_tpu_torch.train.gan import (
         GanTrainState, make_gan_train_step)
 
-    def build(plain):
+    def build():
         gen = build_gridnet(torch, "GridNet", train_flats["GridNet"])
         disc = NLayerDiscriminator(9, NDF, n_layers=3, norm="instance",
                                    dtype=torch.bfloat16)
@@ -2307,13 +2323,13 @@ def run_gridnet_gan(torch, kern, weights, train_flats, seed: int):
         hned, combined = frozen_nets(torch, weights)
         step = make_gan_train_step(
             gen, disc, hned, combined, gan_mode="lsgan", flip_mode="batch",
-            plain=plain, device=DEVICE,
+            device=DEVICE,
             generator=torch.Generator().manual_seed(seed + 150))
         state = GanTrainState(gen=recording_state(gen, adam()),
                               disc=recording_state(disc, adam()))
         return gen, disc, step, state
 
-    gen, disc, step, state = build(False)
+    gen, disc, step, state = build()
     batches = [make_packed_batch(BATCH, seed + 160 + i)
                for i in range(GAN_STEPS)]
     start_g, start_d = snapshot(gen), snapshot(disc)
@@ -2341,8 +2357,9 @@ def run_gridnet_gan(torch, kern, weights, train_flats, seed: int):
     check_moved(torch, "GridNet GAN train, discriminator", start_d, disc,
                 dead_d)
 
-    _, _, ref_step, ref_state = build(True)
-    _, ref_metrics = ref_step(ref_state, batches[0])
+    _, _, ref_step, ref_state = build()
+    with kern.plain():
+        _, ref_metrics = ref_step(ref_state, batches[0])
     ref = (ref_metrics, ref_state.gen.last_grads, ref_state.disc.last_grads)
     del ref_step, ref_state
     terms = compare_terms("GridNet GAN step 1", first[0], ref[0], GAN_TERMS)
@@ -2659,12 +2676,12 @@ def run_train_cli(torch, kern, seed: int):
         check(calls_c["validation batch"] == max(CLI_VAL // BATCH, 1),
               f"warm start: calls {calls_c}")
         batch = next(iter(trainer.val_loader))
-        plain = make_eval_step(trainer.model, trainer.hned,
-                               trainer.combined.eval_variant(),
-                               n_classes=N_CLASSES, plain=True, device=DEVICE)
-        val_p = validate(plain, [batch], N_CLASSES)
+        plain = make_eval_step(trainer.model, trainer.hned, trainer.combined,
+                               n_classes=N_CLASSES, device=DEVICE)
+        with kern.plain():
+            val_p = validate(plain, [batch], N_CLASSES)
+            ref_metrics, ref_ids, ref_img = plain(batch)
         metrics, ids, img = trainer._eval_step(batch)
-        ref_metrics, ref_ids, ref_img = plain(batch)
         terms = {}
         for k in TRAIN_TERMS:
             a, b = float(metrics[k]), float(ref_metrics[k])
@@ -2898,9 +2915,13 @@ def rendered_window_mismatch(torch, trainer) -> dict:
 
 
 def rollout_step_grads(torch, net, loss_fn, imgs, segs, noise, plain):
-    total, metrics = loss_fn(imgs, segs, True, noise, plain)
+    """(metrics, gradients) of one step, forward and backward (with remat,
+    the recomputation) under ``kernels.plain(plain)``."""
+    from video_layout_generation_tpu_torch.ops import kernels
     names = [k for k, _ in net.named_parameters()]
-    grads = torch.autograd.grad(total, list(net.parameters()))
+    with kernels.plain(plain):
+        total, metrics = loss_fn(imgs, segs, True, noise)
+        grads = torch.autograd.grad(total, list(net.parameters()))
     return ({k: v.detach() for k, v in metrics.items()},
             dict(zip(names, grads)))
 
@@ -3891,8 +3912,8 @@ def dp_validation(torch, kern, seed: int) -> dict:
     net = GridNet(n_channels=10, filters_level=FILTERS, dtype=torch.bfloat16)
     net.load_state_dict(params_from_flax(weights["gridnet"]), strict=True)
     hned, combined = frozen_nets(torch, weights)
-    step = make_eval_step(net, hned, combined.eval_variant(),
-                          n_classes=N_CLASSES, device=DEVICE)
+    step = make_eval_step(net, hned, combined, n_classes=N_CLASSES,
+                          device=DEVICE)
     kern.reset_launch_counts()
     val = validate(step, [{"packed6": rows_of(
         make_packed_batch(BATCH, seed + 50)["packed6"])}], N_CLASSES)

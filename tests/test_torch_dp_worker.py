@@ -269,7 +269,7 @@ def validation(rows) -> dict:
     """``validate`` over two global batches."""
     from video_layout_generation_tpu_torch.train.steps import make_eval_step
     from video_layout_generation_tpu_torch.train.trainer import validate
-    step = make_eval_step(_gridnet(16), None, _combined().eval_variant(),
+    step = make_eval_step(_gridnet(16), None, _combined(),
                           n_classes=N_CLASSES, device="cpu")
     batches = [{"packed6": rows(packed_batch(GLOBAL_BATCH, 17 + i))}
                for i in range(2)]

@@ -34,6 +34,7 @@ from video_layout_generation_tpu_torch.io.weights import (load_hned_params,
                                                           params_from_flax)
 from video_layout_generation_tpu_torch.losses import CombinedLoss
 from video_layout_generation_tpu_torch.models import HNED, GridNet
+from video_layout_generation_tpu_torch.ops import kernels
 from video_layout_generation_tpu_torch.serving import LayoutPredictor
 from video_layout_generation_tpu_torch.train import steps as tsteps
 from video_layout_generation_tpu_torch.train.assemble import normalize_image
@@ -162,8 +163,7 @@ def eval_pair(jax_side, port_side):
                                   j["combined"].eval_variant(),
                                   n_classes=N_CLASSES)
     p = port_side
-    tstep = tsteps.make_eval_step(p["model"], p["hned"],
-                                  p["combined"].eval_variant(),
+    tstep = tsteps.make_eval_step(p["model"], p["hned"], p["combined"],
                                   n_classes=N_CLASSES, device="cpu")
     batches = [{"packed6": _packed_batch(2, seed=3)},
                {"packed6": _packed_batch(1, seed=4)}]
@@ -204,10 +204,9 @@ def test_eval_step_layouts_frames_and_confusion_match_jax(eval_pair):
 def test_eval_step_plain_flag_and_weights(port_side, eval_pair):
     batches, _, got, _ = eval_pair
     p = port_side
-    plain = tsteps.make_eval_step(p["model"], p["hned"],
-                                  p["combined"].eval_variant(),
-                                  n_classes=None, plain=True,
-                                  device="cpu")(batches[0])
+    with kernels.plain():
+        plain = tsteps.make_eval_step(p["model"], p["hned"], p["combined"],
+                                      n_classes=None, device="cpu")(batches[0])
     assert "cm" not in plain[0]
     for k in ("loss", "loss_l1", "loss_style", "loss_seg"):
         np.testing.assert_allclose(float(plain[0][k]), float(got[0][0][k]),

@@ -121,8 +121,9 @@ def test_hned_fused_edge_and_bridge_forms(frames):
     assert not edge.requires_grad          # frozen: no gradient flows
     assert kernels.launch_counts()["prelu_conv3x3"] == 0   # CPU: plain
     np.testing.assert_allclose(edge.numpy(), np.asarray(ref), atol=1e-4)
-    np.testing.assert_array_equal(
-        edge.numpy(), hned_fused_edge(model, x, plain=True).numpy())
+    with kernels.plain():
+        plain = hned_fused_edge(model, x)
+    np.testing.assert_array_equal(edge.numpy(), plain.numpy())
 
 
 def test_hned_bf16_trunk_stays_close_to_f32(frames):

@@ -150,6 +150,58 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
                                "instance_norm_bwd": 0}
 
 
+def _graph_nodes(t: torch.Tensor) -> set:
+    """The names of the autograd nodes behind ``t``."""
+    names, seen, todo = set(), set(), [t.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        names.add(type(fn).__name__)
+        todo.extend(f for f, _ in fn.next_functions)
+    return names
+
+
+def test_plain_mode_routes_every_wrapper_to_its_plain_version():
+    """Under ``kernels.plain()`` no kernel's autograd Function is in the
+    graph of a GridNet, a ResnetGenerator or an SSIM loss: every wrapper
+    returned its plain version. The forward values stay the same on the
+    CPU. The mode nests and is restored after an exception."""
+    from video_layout_generation_tpu_torch.models import (GridNet,
+                                                          ResnetGenerator)
+    from video_layout_generation_tpu_torch.ops import kernels
+    torch.manual_seed(0)
+    x = torch.randn(1, 16, 16, 8)
+    y = torch.rand(1, 16, 16, 3)
+    cases = [(GridNet(n_channels=8, filters_level=(4, 6, 8)),
+              {"_PreluConv3x3Backward", "_FusedLateralBackward"}),
+             (ResnetGenerator(input_nc=8, ngf=4, n_blocks=1),
+              {"InstanceNormFunctionBackward"}),
+             (lambda z: (kernels.ssim_loss(z[..., :3].sigmoid(), y),
+                         z.sum()), {"_SsimPlanesBackward"})]
+    for net, functions in cases:
+        z = x.clone().requires_grad_(True)
+        seg, img = net(z)
+        assert _graph_nodes(seg.sum() + img.sum()) >= functions
+        with kernels.plain():
+            seg_p, img_p = net(z)
+        assert not _graph_nodes(seg_p.sum() + img_p.sum()) & functions
+        assert torch.equal(seg_p, seg) and torch.equal(img_p, img)
+
+    assert not kernels.plain_active()
+    with kernels.plain():
+        assert kernels.plain_active()
+        with kernels.plain(False):
+            assert not kernels.plain_active()
+        assert kernels.plain_active()
+        with pytest.raises(RuntimeError, match="inside"):
+            with kernels.plain(False):
+                raise RuntimeError("inside")
+        assert kernels.plain_active()
+    assert not kernels.plain_active()
+
+
 def test_kernel_a_rejects_other_strides():
     with pytest.raises(ValueError, match="stride"):
         prelu_conv3x3(torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 8, 8),

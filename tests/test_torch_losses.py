@@ -1,7 +1,7 @@
 """The port's loss stack on the CPU in f32 against the JAX package: pixel
 losses, the three cross-entropy variants, the VGG19 feature loss with the
-committed ``vgg_synth.npz`` weights, ``CombinedLoss`` and its
-``eval_variant``, and the ReLU epilogue of kernel A's plain version.
+committed ``vgg_synth.npz`` weights, ``CombinedLoss`` with its SSIM term
+on both routes, and the ReLU epilogue of kernel A's plain version.
 
 Inputs are made with numpy from a seed and handed to both. Tolerance
 rtol 1e-4 (f32 sums in another order).
@@ -21,6 +21,7 @@ from video_layout_generation_tpu.losses import pixel as jpixel
 from video_layout_generation_tpu.losses import vgg as jvgg
 from video_layout_generation_tpu_torch import losses as tl
 from video_layout_generation_tpu_torch.io.weights import params_from_flax
+from video_layout_generation_tpu_torch.ops import kernels
 from video_layout_generation_tpu_torch.ops.kernels import (
     prelu_conv3x3, prelu_conv3x3_plain)
 
@@ -135,19 +136,26 @@ def test_vgg_loader_bridge_and_seeded_init_agree_on_layout():
     assert not any(p.requires_grad for p in a.parameters())
 
 
-@pytest.mark.parametrize("eval_variant", [False, True])
-def test_combined_loss_matches_jax(images, eval_variant):
+@pytest.mark.parametrize("ssim_kernel", [False, True])
+def test_combined_loss_matches_jax(images, ssim_kernel):
+    """Differentiated, the SSIM term is the plain formula; under no_grad it
+    is the fused kernel's wrapper (its plain version on the CPU), against
+    the JAX package's Pallas variant."""
     out, tgt = images
     jloss = jcombined.CombinedLoss.create(VGG_NPZ)
     tloss = tl.CombinedLoss.create(VGG_NPZ, device="cpu")
-    if eval_variant:
-        jloss, tloss = jloss.eval_variant(), tloss.eval_variant()
-        assert jloss.ssim_use_pallas and tloss.ssim_use_kernel
+    if ssim_kernel:
+        jloss = jloss.eval_variant()
+        assert jloss.ssim_use_pallas
     ref = jloss(jnp.asarray(out), jnp.asarray(tgt))
-    got = tloss(_t(out), _t(tgt))
-    np.testing.assert_allclose(float(got), float(ref), rtol=RTOL)
-    np.testing.assert_allclose(float(tloss(_t(out), _t(tgt), plain=True)),
-                               float(ref), rtol=RTOL)
+    o = _t(out).requires_grad_(not ssim_kernel)
+    with torch.set_grad_enabled(not ssim_kernel):
+        got = tloss(o, _t(tgt))
+        with kernels.plain():
+            plain = tloss(o, _t(tgt))
+    assert got.requires_grad == plain.requires_grad == (not ssim_kernel)
+    np.testing.assert_allclose(float(got.detach()), float(ref), rtol=RTOL)
+    np.testing.assert_allclose(float(plain.detach()), float(ref), rtol=RTOL)
 
 
 def test_combined_loss_gradient_matches_jax(images):

@@ -316,7 +316,7 @@ def test_window_helpers():
         np.testing.assert_array_equal(trip[key].numpy(),
                                       np.asarray(jtrip[key]))
     with pytest.raises(ValueError, match="needs 4-frame windows"):
-        tms.make_multistep_loss_fn(lambda x, plain: x, None, None, 2)(
+        tms.make_multistep_loss_fn(lambda x: x, None, None, 2)(
             imgs[:, :3], segs[:, :3], False)
     with pytest.raises(ValueError, match="flip_mode"):
         tms.make_multistep_train_step(None, None, None, 2,

@@ -21,6 +21,7 @@ from video_layout_generation_tpu_torch import models as tmodels
 from video_layout_generation_tpu_torch.io.weights import params_from_flax
 from video_layout_generation_tpu_torch.models import init as tinit
 from video_layout_generation_tpu_torch.models import layers as tlayers
+from video_layout_generation_tpu_torch.ops import kernels
 
 NORMS = ["instance", "batch", "none"]
 ATOL = 1e-4
@@ -76,7 +77,8 @@ def test_resnet_generator_matches_jax(norm):
     np.testing.assert_allclose(img.detach().numpy(), np.asarray(img_r),
                                atol=ATOL)
     # the kernel's plain version gives the same on the CPU
-    seg_p, img_p = tm(torch.from_numpy(x), plain=True)
+    with kernels.plain():
+        seg_p, img_p = tm(torch.from_numpy(x))
     assert torch.equal(seg_p, seg) and torch.equal(img_p, img)
 
 

@@ -26,6 +26,7 @@ from benchmark.reference import resnet_gen, train as ref  # noqa: E402
 from video_layout_generation_tpu_torch.losses import CombinedLoss  # noqa
 from video_layout_generation_tpu_torch.models import (HNED,  # noqa: E402
                                                       ResnetGenerator)
+from video_layout_generation_tpu_torch.ops import kernels  # noqa: E402
 from video_layout_generation_tpu_torch.train import state as tstate  # noqa
 from video_layout_generation_tpu_torch.train import steps as tsteps  # noqa
 
@@ -64,8 +65,8 @@ def test_the_reference_forward_equals_the_port_at_9_blocks():
                                          len(k)))
     x = torch.randn(2, 32, 32, 10, generator=torch.Generator().manual_seed(3))
     seg, img = resnet_gen.generator(w, x)
-    with torch.no_grad():
-        pseg, pimg = _port_generator(config, w)(x, plain=True)
+    with torch.no_grad(), kernels.plain():
+        pseg, pimg = _port_generator(config, w)(x)
     # float32 on both sides, the same operations in another order (NHWC
     # against NCHW convs, the norm's statistics): 1e-4 of the logits' size
     scale = float(seg.abs().max())
@@ -109,7 +110,8 @@ def _inputs():
 
 def _port_step(w, imgs, segs, coin):
     """The port's train step on the generator of ``w``, its state, and
-    the batch of ``imgs`` and ``segs`` as the loader hands it over."""
+    the batch of ``imgs`` and ``segs`` as the loader hands it over; call
+    the step under ``kernels.plain()``."""
     gen = _port_generator(CONFIG, w["gen"])
     hned = HNED()
     hned.load_state_dict(w["hned"], strict=True)
@@ -119,7 +121,7 @@ def _port_step(w, imgs, segs, coin):
                                                                 B1))
     step = tsteps.make_train_step(
         gen, hned, combined, w_l1=W[0], w_style=W[1], w_seg=W[2],
-        plain=True, device="cpu",
+        device="cpu",
         generator=torch.Generator().manual_seed(_coin_seed(coin)))
     batch = {"img1": imgs[:, 0], "img2": imgs[:, 1], "img3": imgs[:, 2],
              "seg1": segs[:, 0][..., None], "seg2": segs[:, 1][..., None],
@@ -131,7 +133,8 @@ def _port_step(w, imgs, segs, coin):
 def test_one_train_step_against_the_reference(coin):
     w, imgs, segs = _inputs()
     step, state, batch = _port_step(w, imgs, segs, coin)
-    state, metrics = step(state, batch)
+    with kernels.plain():
+        state, metrics = step(state, batch)
     grads = {k: m / (1 - B1) for k, m in state.opt_state["mu"].items()}
 
     params = {k: v.clone().requires_grad_(True) for k, v in w["gen"].items()}
@@ -195,7 +198,7 @@ def test_the_generator_s_spans_lie_inside_the_step_s_forward(tmp_path):
     from torch.profiler import ProfilerActivity, profile
     w, imgs, segs = _inputs()
     step, state, batch = _port_step(w, imgs, segs, False)
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    with profile(activities=[ProfilerActivity.CPU]) as prof, kernels.plain():
         step(state, batch)
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))

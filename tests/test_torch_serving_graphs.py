@@ -1,7 +1,8 @@
 """CUDA graphs of the served rollout (``serving.py``) on the card, with
 kernels A and B: the graphed predictor's frames and layouts bit for bit
 against eager runs of a predictor built the same way, the launch counters
-on every replay, and the paths that stay eager.
+on every replay, and the paths that stay eager; and the plain mode
+(``kernels.plain()``), under which no kernel of the port launches.
 
 Every test here needs an NVIDIA card (and ``nvcc`` for the kernels): they
 carry the ``cuda`` marker and skip without a card. The file imports no JAX,
@@ -15,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from video_layout_generation_tpu_torch.models import HNED, GridNet
+from video_layout_generation_tpu_torch.models import (HNED, GridNet,
+                                                      ResnetGenerator)
+from video_layout_generation_tpu_torch.ops import kernels
 from video_layout_generation_tpu_torch.ops.kernels import launch_counts
 from video_layout_generation_tpu_torch.parallel import make_mesh
 from video_layout_generation_tpu_torch.serving import LayoutPredictor
@@ -138,11 +141,42 @@ def test_mesh_replicas_graph_on_their_own(weights):
 
 
 def test_plain_predictor_on_the_card_stays_eager(weights):
-    """``plain=True`` (the on-card reference) never captures."""
+    """Requests under ``kernels.plain()`` (the on-card reference) never
+    capture."""
     hw = (64, 64)
-    pred = predictor(weights, False, False, 1, hw, plain=True)
     req = request(1, hw, 30)
-    outs = [pred.predict(*req) for _ in range(3)]
+    with kernels.plain():
+        pred = predictor(weights, False, False, 1, hw)
+        outs = [pred.predict(*req) for _ in range(3)]
     assert pred.rollouts == {"replayed": 0, "eager": 3, "captured": 0}
     assert pred._replicas[0].stream is None
     assert_same(outs[2], outs[0])
+
+
+def test_the_plain_mode_launches_no_kernel_on_the_card(weights):
+    """Under ``kernels.plain()`` a forward of GridNet and of a
+    ResnetGenerator and an SSIM loss on the card move no launch counter;
+    outside it the same calls launch A, B, the InstanceNorm and SSIM
+    kernels."""
+    gen, _ = weights
+    grid = GridNet(n_channels=8, filters_level=FILTERS, dtype=torch.bfloat16)
+    grid.load_state_dict(gen[False])
+    res = ResnetGenerator(input_nc=8, ngf=8, n_blocks=1,
+                          dtype=torch.bfloat16)
+    grid, res = grid.to("cuda").eval(), res.to("cuda").eval()
+    torch.manual_seed(1)
+    x = torch.randn(2, 64, 64, 8, device="cuda")
+    y = torch.rand(2, 64, 64, 3, device="cuda", dtype=torch.bfloat16)
+
+    def calls():
+        return grid(x), res(x), kernels.ssim_loss(y, y.flip(1))
+
+    with torch.no_grad():
+        with kernels.plain():
+            plain, moved_plain = moved_by(calls)
+        kern, moved = moved_by(calls)
+    assert set(moved_plain.values()) == {0}
+    assert (moved["prelu_conv3x3"], moved["fused_lateral"],
+            moved["instance_norm_fwd_only"], moved["ssim_loss"]) \
+        == (31, 15, 7, 1)
+    assert float(plain[2]) == pytest.approx(float(kern[2]), rel=1e-4)

@@ -39,13 +39,17 @@ def interp(monkeypatch):
 
 @pytest.mark.parametrize("shape", [(2, 16, 16, 3), (3, 9, 21, 3),
                                    (1, 3, 3, 1), (2, 32, 32, 5)])
-@pytest.mark.parametrize("use_kernel", [False, True])
-def test_ssim_loss_matches_xla_formula(shape, use_kernel):
+@pytest.mark.parametrize("kernel", [False, True])
+def test_ssim_loss_matches_xla_formula(shape, kernel):
+    """A differentiated call takes the plain formula, one under no_grad the
+    kernel's wrapper."""
     x, y = _pair(shape, seed=1)
     ref = float(jax_ssim(jnp.asarray(x), jnp.asarray(y), use_pallas=False))
-    got = float(ssim_loss(torch.from_numpy(x), torch.from_numpy(y),
-                          use_kernel=use_kernel))
-    assert abs(got - ref) <= 1e-6
+    xt = torch.from_numpy(x).requires_grad_(not kernel)
+    with torch.set_grad_enabled(not kernel):
+        got = ssim_loss(xt, torch.from_numpy(y))
+    assert got.requires_grad == (not kernel)
+    assert abs(float(got) - ref) <= 1e-6
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 16, 3), (1, 24, 8, 3)])
@@ -83,15 +87,17 @@ def test_ssim_bf16_inputs_use_f32_math():
         torch.from_numpy(x), torch.from_numpy(y)))) > 1e-6
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
-def test_ssim_gradient_matches_jax_grad(use_kernel):
+@pytest.mark.parametrize("kernel", [False, True])
+def test_ssim_gradient_matches_jax_grad(kernel):
+    """The plain formula's autograd, and the kernel's Function (its backward
+    re-runs the plain formula)."""
     x, y = _pair((2, 12, 12, 3), seed=5)
     gx_ref, gy_ref = jax.grad(
         lambda a, b: jax_ssim(a, b, use_pallas=False), argnums=(0, 1))(
             jnp.asarray(x), jnp.asarray(y))
     xt = torch.from_numpy(x).requires_grad_(True)
     yt = torch.from_numpy(y).requires_grad_(True)
-    (3.0 * ssim_loss(xt, yt, use_kernel=use_kernel)).backward()
+    (3.0 * (tk.ssim_loss if kernel else ssim_loss)(xt, yt)).backward()
     np.testing.assert_allclose(xt.grad.numpy() / 3.0, np.asarray(gx_ref),
                                atol=1e-5)
     np.testing.assert_allclose(yt.grad.numpy() / 3.0, np.asarray(gy_ref),

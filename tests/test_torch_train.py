@@ -401,7 +401,7 @@ def test_eval_step_takes_a_resnet_generator_and_names_the_net_it_refuses(
         step_pair):
     from video_layout_generation_tpu_torch.device import require_bf16
     gen, hned, combined = step_pair["nets"]
-    out = tsteps.make_eval_step(gen, hned, combined.eval_variant(),
+    out = tsteps.make_eval_step(gen, hned, combined,
                                 n_classes=20, device="cpu")(
         {"packed6": step_pair["packed"]})
     assert out[1].shape == (2,) + HW and np.isfinite(float(out[0]["loss"]))

@@ -32,6 +32,7 @@ from video_layout_generation_tpu_torch.io.weights import \
     params_from_flax  # noqa: E402
 from video_layout_generation_tpu_torch.models import \
     ResnetGenerator  # noqa: E402
+from video_layout_generation_tpu_torch.ops import kernels  # noqa: E402
 from video_layout_generation_tpu_torch.ops.kernels import \
     instance_norm as mod  # noqa: E402
 from video_layout_generation_tpu_torch.train.steps import (  # noqa: E402
@@ -43,13 +44,15 @@ SHOWN = ("Conv_0.kernel", "Conv_2.kernel", "ResnetBlock_4.Conv_0.kernel",
 
 
 class PinnedLoss:
-    """The combined loss with its VGG19 trunk pinned to one path."""
+    """The combined loss with its VGG19 trunk pinned to one path: run under
+    ``kernels.plain(plain)`` whatever the mode around it."""
 
     def __init__(self, inner, plain):
         self.inner, self.plain, self.vgg_model = inner, plain, inner.vgg_model
 
-    def __call__(self, output, target, plain=False):
-        return self.inner(output, target, plain=self.plain)
+    def __call__(self, output, target):
+        with kernels.plain(self.plain):
+            return self.inner(output, target)
 
 
 def main() -> int:
@@ -69,12 +72,13 @@ def main() -> int:
 
     def grads(model, hned_plain, gen_plain, vgg_plain):
         names = [k for k, _ in model.named_parameters()]
-        with torch.no_grad():
-            x, f3n = prepare_inputs(hned, batch, hned_plain)
+        with torch.no_grad(), kernels.plain(hned_plain):
+            x, f3n = prepare_inputs(hned, batch)
         loss_fn = make_loss_fn(model, PinnedLoss(combined, vgg_plain))
-        total, (_, _, img) = loss_fn(x, f3n, batch["seg3"], gen_plain)
-        g = torch.autograd.grad(total, [p for _, p in
-                                        model.named_parameters()])
+        with kernels.plain(gen_plain):
+            total, (_, _, img) = loss_fn(x, f3n, batch["seg3"])
+            g = torch.autograd.grad(total, [p for _, p in
+                                            model.named_parameters()])
         return float(total.detach()), dict(zip(names, g)), img.detach()
 
     def compare(tag, got, ref):

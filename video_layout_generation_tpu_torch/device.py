@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from .ops.kernels import plain_active
 from .parallel.mesh import in_group, local_rank
 
 
@@ -25,13 +26,14 @@ def require_bf16(device: torch.device, nets) -> None:
     """On a CUDA device the conv kernels take bf16 activations only: raise
     here, by the net's name, for a net built with another ``dtype``, rather
     than inside its first conv. ``nets`` maps names to modules with a
-    ``dtype`` attribute; None entries are passed over."""
-    if device.type != "cuda":
+    ``dtype`` attribute; None entries are passed over. Nothing is checked
+    under ``ops.kernels.plain()``, where no kernel runs."""
+    if device.type != "cuda" or plain_active():
         return
     for name, net in nets.items():
         if net is not None and net.dtype != torch.bfloat16:
             raise ValueError(
                 f"{name} was built with dtype={net.dtype}; on a CUDA device "
                 f"the conv kernels take bf16 activations only: build it "
-                f"with dtype=torch.bfloat16, or pass plain=True to run the "
-                f"plain versions")
+                f"with dtype=torch.bfloat16, or run under kernels.plain() "
+                f"for the plain versions")

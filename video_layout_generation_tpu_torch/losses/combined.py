@@ -4,7 +4,6 @@ is a plain callable."""
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 from typing import Mapping, Optional
 
@@ -19,10 +18,6 @@ from .vgg import VGG19Features, make_vgg_loss, vgg_feature_loss
 @dataclass(frozen=True)
 class CombinedLoss:
     vgg_model: VGG19Features
-    # The fused SSIM kernel (ops/kernels/ssim.py). Its backward re-runs the
-    # plain formula, so only paths that are never differentiated (the
-    # validation step) switch it on.
-    ssim_use_kernel: bool = False
 
     @classmethod
     def create(cls, vgg_weights: Optional[str] = None,
@@ -38,15 +33,7 @@ class CombinedLoss:
             dtype = torch.bfloat16
         return cls(make_vgg_loss(vgg_weights, dtype, params, seed).to(dev))
 
-    def eval_variant(self) -> "CombinedLoss":
-        """Copy for non-differentiated (validation) use: fused SSIM."""
-        return dataclasses.replace(self, ssim_use_kernel=True)
-
-    def __call__(self, output: torch.Tensor, target: torch.Tensor,
-                 plain: bool = False) -> torch.Tensor:
-        """``plain=True`` runs every kernel's plain PyTorch version (the
-        on-card reference), the SSIM term included."""
-        return (vgg_feature_loss(self.vgg_model, output, target, plain)
-                + gradient_loss(output, target)
-                + ssim_loss(output, target,
-                            use_kernel=self.ssim_use_kernel and not plain))
+    def __call__(self, output: torch.Tensor, target: torch.Tensor
+                 ) -> torch.Tensor:
+        return (vgg_feature_loss(self.vgg_model, output, target)
+                + gradient_loss(output, target) + ssim_loss(output, target))

@@ -12,17 +12,16 @@ import torch
 from ..ops.kernels import ssim as _kernel
 
 
-def ssim_loss(x: torch.Tensor, y: torch.Tensor,
-              use_kernel: bool = False) -> torch.Tensor:
+def ssim_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """x, y (N, H, W, C) -> scalar: sum over C of the mean (1 - SSIM) / 2.
 
-    ``use_kernel=True`` takes the fused path (``ops/kernels/ssim.py``): for
-    CUDA tensors one kernel launch, which streams each image's rows through
-    a thread-block cluster once and merges its sums in the cluster; its
-    plain version for CPU tensors. Its backward re-runs the plain formula,
-    so only paths that are never differentiated ask for it
-    (``CombinedLoss.eval_variant``). The default is the plain formula under
-    ordinary autograd."""
-    if use_kernel:
-        return _kernel.ssim_loss(x, y)
-    return _kernel.ssim_planes_plain(x, y).mean(dim=0).sum()
+    Where nothing is differentiated (autograd off, or neither input
+    requiring grad: the validation step) the fused path
+    (``ops/kernels/ssim.py``): for CUDA tensors one kernel launch, which
+    streams each image's rows through a thread-block cluster once and
+    merges its sums in the cluster. Its backward re-runs the plain
+    formula, so a differentiated call (the train steps) takes the plain
+    formula under ordinary autograd instead."""
+    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
+        return _kernel.ssim_planes_plain(x, y).mean(dim=0).sum()
+    return _kernel.ssim_loss(x, y)

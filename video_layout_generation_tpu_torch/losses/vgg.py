@@ -42,7 +42,7 @@ class VGG19Features(nn.Module):
                 self.add_module(f"conv{b+1}_{j+1}", Conv3x3(cin, f))
                 cin = f
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = x.contiguous()
@@ -50,19 +50,17 @@ class VGG19Features(nn.Module):
             if b > 0:
                 x = max_pool_2x2(x)
             for j in range(len(widths)):
-                x = self._modules[f"conv{b+1}_{j+1}"](x, plain=plain,
-                                                      relu_out=True)
+                x = self._modules[f"conv{b+1}_{j+1}"](x, relu_out=True)
         return x
 
 
 def vgg_feature_loss(model: VGG19Features, output: torch.Tensor,
-                     target: torch.Tensor, plain: bool = False
-                     ) -> torch.Tensor:
+                     target: torch.Tensor) -> torch.Tensor:
     """L1 in relu4_4 feature space, reduced in f32. The target branch
     carries no gradient."""
-    fo = model(output, plain=plain)
+    fo = model(output)
     with torch.no_grad():
-        ft = model(target, plain=plain)
+        ft = model(target)
     return (fo.float() - ft.float()).abs().mean()
 
 

@@ -10,8 +10,9 @@ Every 3x3 conv runs through the hand-written kernels: a channel-preserving
 LateralBlock without shortcut is one launch of kernel B (``fused_lateral``),
 every other conv one launch of kernel A (``prelu_conv3x3``) with the PReLU
 before it fused in. A block takes the grid's additive fusion as
-``residual`` and adds it in the last kernel's epilogue. ``plain=True``
-runs the kernels' plain PyTorch versions instead (the on-card reference).
+``residual`` and adds it in the last kernel's epilogue. Under
+``ops.kernels.plain()`` the kernels' plain PyTorch versions run instead
+(the on-card reference).
 
 Training: with autograd on, a block hands the kernels its live biases and
 PReLU slopes and, where the kernel requires grad, the differentiable cast
@@ -32,14 +33,9 @@ import torch
 from torch import nn
 
 from ..ops.coords import add_coord_channels
-from ..ops.kernels import (fused_lateral, fused_lateral_plain, prelu_conv3x3,
-                           prelu_conv3x3_plain)
+from ..ops.kernels import fused_lateral, prelu_conv3x3
 from ..ops.kernels.conv3x3 import prelu_plain
 from ..ops.resize import upsample2x
-
-
-def _conv_fn(plain: bool):
-    return prelu_conv3x3_plain if plain else prelu_conv3x3
 
 
 def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -92,10 +88,9 @@ class Conv3x3(nn.Module):
 
     def forward(self, x: torch.Tensor, alpha: Optional[nn.Parameter] = None,
                 residual: Optional[torch.Tensor] = None, stride: int = 1,
-                plain: bool = False, relu_out: bool = False
-                ) -> torch.Tensor:
-        return _conv_fn(plain)(x, self.weight(x.dtype), self.bias, alpha,
-                               residual, stride, relu_out)
+                relu_out: bool = False) -> torch.Tensor:
+        return prelu_conv3x3(x, self.weight(x.dtype), self.bias, alpha,
+                             residual, stride, relu_out)
 
 
 class LateralBlock(nn.Module):
@@ -112,19 +107,17 @@ class LateralBlock(nn.Module):
         self.fused = not shortcut_conv and cin == out_ch
 
     def forward(self, x: torch.Tensor,
-                residual: Optional[torch.Tensor] = None,
-                plain: bool = False) -> torch.Tensor:
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.fused:
-            fn = fused_lateral_plain if plain else fused_lateral
             c0, c1 = self.Conv_0, self.Conv_1
-            return fn(x, c0.weight(x.dtype), c0.bias, self.PReLU_0.alpha,
-                      c1.weight(x.dtype), c1.bias, self.PReLU_1.alpha,
-                      residual)
+            return fused_lateral(x, c0.weight(x.dtype), c0.bias,
+                                 self.PReLU_0.alpha, c1.weight(x.dtype),
+                                 c1.bias, self.PReLU_1.alpha, residual)
         s = residual
         if hasattr(self, "Conv_2"):
-            s = self.Conv_2(x, residual=residual, plain=plain)
-        y = self.Conv_0(x, self.PReLU_0.alpha, plain=plain)
-        return self.Conv_1(y, self.PReLU_1.alpha, residual=s, plain=plain)
+            s = self.Conv_2(x, residual=residual)
+        y = self.Conv_0(x, self.PReLU_0.alpha)
+        return self.Conv_1(y, self.PReLU_1.alpha, residual=s)
 
 
 class DownSamplingBlock(nn.Module):
@@ -138,11 +131,9 @@ class DownSamplingBlock(nn.Module):
         self.Conv_1 = Conv3x3(out_ch, out_ch)
 
     def forward(self, x: torch.Tensor,
-                residual: Optional[torch.Tensor] = None,
-                plain: bool = False) -> torch.Tensor:
-        y = self.Conv_0(x, self.PReLU_0.alpha, stride=2, plain=plain)
-        return self.Conv_1(y, self.PReLU_1.alpha, residual=residual,
-                           plain=plain)
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        y = self.Conv_0(x, self.PReLU_0.alpha, stride=2)
+        return self.Conv_1(y, self.PReLU_1.alpha, residual=residual)
 
 
 class UpSamplingBlock(nn.Module):
@@ -158,12 +149,9 @@ class UpSamplingBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 residual: Optional[torch.Tensor] = None,
-                plain: bool = False, upsample: str = "bilinear"
-                ) -> torch.Tensor:
-        y = self.Conv_0(upsample2x(x, upsample), self.PReLU_0.alpha,
-                        plain=plain)
-        return self.Conv_1(y, self.PReLU_1.alpha, residual=residual,
-                           plain=plain)
+                upsample: str = "bilinear") -> torch.Tensor:
+        y = self.Conv_0(upsample2x(x, upsample), self.PReLU_0.alpha)
+        return self.Conv_1(y, self.PReLU_1.alpha, residual=residual)
 
 
 class CoordConv(nn.Module):
@@ -174,10 +162,10 @@ class CoordConv(nn.Module):
         self.Conv_0 = Conv3x3(cin + 2, cout)
 
     def forward(self, x: torch.Tensor,
-                residual: Optional[torch.Tensor] = None, stride: int = 1,
-                plain: bool = False) -> torch.Tensor:
+                residual: Optional[torch.Tensor] = None, stride: int = 1
+                ) -> torch.Tensor:
         return self.Conv_0(add_coord_channels(x), residual=residual,
-                           stride=stride, plain=plain)
+                           stride=stride)
 
 
 class CoordLateralBlock(nn.Module):
@@ -193,13 +181,12 @@ class CoordLateralBlock(nn.Module):
             self.CoordConv_2 = CoordConv(cin, out_ch)
 
     def forward(self, x: torch.Tensor,
-                residual: Optional[torch.Tensor] = None,
-                plain: bool = False) -> torch.Tensor:
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         s = residual
         if hasattr(self, "CoordConv_2"):
-            s = self.CoordConv_2(x, residual=residual, plain=plain)
-        y = prelu(self.CoordConv_0(x, plain=plain), self.PReLU_0.alpha)
-        return self.CoordConv_1(y, residual=s, plain=plain)
+            s = self.CoordConv_2(x, residual=residual)
+        y = prelu(self.CoordConv_0(x), self.PReLU_0.alpha)
+        return self.CoordConv_1(y, residual=s)
 
 
 class CoordDownSamplingBlock(nn.Module):
@@ -211,12 +198,10 @@ class CoordDownSamplingBlock(nn.Module):
         self.CoordConv_1 = CoordConv(out_ch, out_ch)
 
     def forward(self, x: torch.Tensor,
-                residual: Optional[torch.Tensor] = None,
-                plain: bool = False) -> torch.Tensor:
-        y = self.CoordConv_0(prelu(x, self.PReLU_0.alpha), stride=2,
-                             plain=plain)
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        y = self.CoordConv_0(prelu(x, self.PReLU_0.alpha), stride=2)
         return self.CoordConv_1(prelu(y, self.PReLU_1.alpha),
-                                residual=residual, plain=plain)
+                                residual=residual)
 
 
 class CoordUpSamplingBlock(nn.Module):
@@ -229,9 +214,8 @@ class CoordUpSamplingBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 residual: Optional[torch.Tensor] = None,
-                plain: bool = False, upsample: str = "bilinear"
-                ) -> torch.Tensor:
+                upsample: str = "bilinear") -> torch.Tensor:
         y = prelu(upsample2x(x, upsample), self.PReLU_0.alpha)
-        y = self.CoordConv_0(y, plain=plain)
+        y = self.CoordConv_0(y)
         return self.CoordConv_1(prelu(y, self.PReLU_1.alpha),
-                                residual=residual, plain=plain)
+                                residual=residual)

@@ -31,8 +31,8 @@ class _Discriminator(nn.Module):
         for name, ch in zip(self.norm_names, channels):
             self.add_module(name, get_norm_layer(norm)(ch))
 
-    def _norm(self, i: int, x, train, plain, update_stats):
-        y = self._modules[self.norm_names[i]](x, train, plain, update_stats)
+    def _norm(self, i: int, x, train, update_stats):
+        y = self._modules[self.norm_names[i]](x, train, update_stats)
         return F.leaky_relu(y, 0.2)
 
 
@@ -60,8 +60,7 @@ class NLayerDiscriminator(_Discriminator):
         self._add_norms(norm, widths[1:])
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                plain: bool = False, update_stats: bool = True
-                ) -> torch.Tensor:
+                update_stats: bool = True) -> torch.Tensor:
         """x (N, H, W, input_nc) -> patch logits (N, h, w, 1) f32. ``train``
         and ``update_stats`` matter to a BatchNorm discriminator only."""
         # the ladder halves the size n_layers times, then shaves a pixel
@@ -76,7 +75,7 @@ class NLayerDiscriminator(_Discriminator):
         y = F.leaky_relu(self.Conv_0(x), 0.2)
         for n in range(1, self.n_layers + 1):
             y = self._norm(n - 1, self._modules[f"Conv_{n}"](y), train,
-                           plain, update_stats)
+                           update_stats)
         return self._modules[f"Conv_{self.n_layers + 1}"](y).float()
 
 
@@ -98,10 +97,9 @@ class PixelDiscriminator(_Discriminator):
         self._add_norms(norm, [ndf * 2])
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                plain: bool = False, update_stats: bool = True
-                ) -> torch.Tensor:
+                update_stats: bool = True) -> torch.Tensor:
         if self.dtype is not None:
             x = x.to(self.dtype)
         y = F.leaky_relu(self.Conv_0(x), 0.2)
-        y = self._norm(0, self.Conv_1(y), train, plain, update_stats)
+        y = self._norm(0, self.Conv_1(y), train, update_stats)
         return self.Conv_2(y).float()

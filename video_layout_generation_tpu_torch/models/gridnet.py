@@ -60,14 +60,11 @@ class _EncColumn(nn.Module):
         self.add_module(f"lateral_2{i-1}", LateralBlock(f2, f2))
         self.col = col
 
-    def forward(self, x0, x1, x2, plain: bool = False,
-                upsample: str = "bilinear"):
+    def forward(self, x0, x1, x2, upsample: str = "bilinear"):
         i, m = self.col, self._modules
-        x0 = m[f"lateral_0{i-1}"](x0, plain=plain)
-        x1 = m[f"lateral_1{i-1}"](
-            x1, residual=m[f"down_0{i}"](x0, plain=plain), plain=plain)
-        x2 = m[f"lateral_2{i-1}"](
-            x2, residual=m[f"down_1{i}"](x1, plain=plain), plain=plain)
+        x0 = m[f"lateral_0{i-1}"](x0)
+        x1 = m[f"lateral_1{i-1}"](x1, residual=m[f"down_0{i}"](x0))
+        x2 = m[f"lateral_2{i-1}"](x2, residual=m[f"down_1{i}"](x1))
         return x0, x1, x2
 
 
@@ -85,14 +82,13 @@ class _DecColumn(nn.Module):
         self.add_module(f"lateral_0{i-1}", LateralBlock(f0, f0))
         self.col = col
 
-    def forward(self, x0, x1, x2, plain: bool = False,
-                upsample: str = "bilinear"):
+    def forward(self, x0, x1, x2, upsample: str = "bilinear"):
         i, m = self.col, self._modules
-        x2 = m[f"lateral_2{i-1}"](x2, plain=plain)
-        up1 = m[f"up_1{i}"](x2, plain=plain, upsample=upsample)
-        x1 = m[f"lateral_1{i-1}"](x1, residual=up1, plain=plain)
-        up0 = m[f"up_0{i}"](x1, plain=plain, upsample=upsample)
-        x0 = m[f"lateral_0{i-1}"](x0, residual=up0, plain=plain)
+        x2 = m[f"lateral_2{i-1}"](x2)
+        up1 = m[f"up_1{i}"](x2, upsample=upsample)
+        x1 = m[f"lateral_1{i-1}"](x1, residual=up1)
+        up0 = m[f"up_0{i}"](x1, upsample=upsample)
+        x0 = m[f"lateral_0{i-1}"](x0, residual=up0)
         return x0, x1, x2
 
 
@@ -123,29 +119,27 @@ class GridNet(nn.Module):
         self.lateral_out_seg = LateralBlock(f0, seg_out)
         self.lateral_out_img = LateralBlock(f0, img_out)
 
-    def forward(self, x: torch.Tensor, plain: bool = False,
-                upsample: str = "bilinear"
+    def forward(self, x: torch.Tensor, upsample: str = "bilinear"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x (N, H, W, n_channels) -> (seg logits, img), both f32 NHWC."""
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = x.contiguous()
-        x0 = self.lateral_in(x, plain=plain)
-        x1 = self.down_00(x0, plain=plain)
-        x2 = self.down_10(x1, plain=plain)
+        x0 = self.lateral_in(x)
+        x1 = self.down_00(x0)
+        x2 = self.down_10(x1)
         remat = self.remat and torch.is_grad_enabled()
         for i in range(1, N_COL):
             col = self._modules[f"col_{i}"]
             if remat:
                 # nothing random inside a column: no RNG state to replay
-                x0, x1, x2 = checkpoint(col, x0, x1, x2, plain=plain,
-                                        upsample=upsample,
+                x0, x1, x2 = checkpoint(col, x0, x1, x2, upsample=upsample,
                                         use_reentrant=False,
                                         preserve_rng_state=False)
             else:
-                x0, x1, x2 = col(x0, x1, x2, plain=plain, upsample=upsample)
-        seg = self.lateral_out_seg(x0, plain=plain)
-        img = self.lateral_out_img(x0, plain=plain)
+                x0, x1, x2 = col(x0, x1, x2, upsample=upsample)
+        seg = self.lateral_out_seg(x0)
+        img = self.lateral_out_img(x0)
         return seg.float(), img.float()
 
 

@@ -70,8 +70,7 @@ class HNED(nn.Module):
             self.add_module(f"score{b+1}", Conv1x1(cin, 1))
         self.combine = Conv1x1(len(_STAGES), 1)
 
-    def forward(self, rgb: torch.Tensor, plain: bool = False
-                ) -> Tuple[torch.Tensor, ...]:
+    def forward(self, rgb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """rgb (N, H, W, 3) in [0, 1] -> six f32 edge maps (N, H, W, 1)."""
         h, w = rgb.shape[1], rgb.shape[2]
         x = rgb.float() * 255.0
@@ -87,8 +86,7 @@ class HNED(nn.Module):
             if b > 0:
                 x = max_pool_2x2(x)
             for j in range(len(widths)):
-                x = self._modules[f"vgg{b+1}_{j}"](x, plain=plain,
-                                                   relu_out=True)
+                x = self._modules[f"vgg{b+1}_{j}"](x, relu_out=True)
             s = self._modules[f"score{b+1}"](x).float()
             scores.append(resize_bilinear(s, (h, w), align_corners=False))
 
@@ -100,7 +98,6 @@ class HNED(nn.Module):
 
 
 @torch.no_grad()
-def hned_fused_edge(model: HNED, rgb: torch.Tensor, plain: bool = False
-                    ) -> torch.Tensor:
+def hned_fused_edge(model: HNED, rgb: torch.Tensor) -> torch.Tensor:
     """The frozen fused edge map (N, H, W, 1), carrying no gradient."""
-    return model(rgb, plain=plain)[-1]
+    return model(rgb)[-1]

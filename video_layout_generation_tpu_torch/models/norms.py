@@ -4,7 +4,7 @@
 - ``instance``: per sample and channel over H, W, no affine parameters, no
   running statistics. Every call goes through ``ops/kernels/instance_norm``:
   the hand-written CUDA kernels for a CUDA tensor (forward and backward),
-  the plain version for a CPU tensor or with ``plain=True``.
+  the plain version for a CPU tensor or under ``ops.kernels.plain()``.
 - ``batch``: affine BatchNorm with running statistics as the JAX package's
   ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``: parameters ``scale`` and
   ``bias``, buffers ``mean`` and ``var``; in train mode the batch statistics
@@ -20,8 +20,7 @@ from typing import Callable
 import torch
 from torch import nn
 
-from ..ops.kernels.instance_norm import (EPS, instance_norm,
-                                         instance_norm_plain)
+from ..ops.kernels.instance_norm import EPS, instance_norm
 
 
 class InstanceNorm(nn.Module):
@@ -32,10 +31,8 @@ class InstanceNorm(nn.Module):
         self.epsilon = epsilon
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                plain: bool = False, update_stats: bool = True
-                ) -> torch.Tensor:
-        fn = instance_norm_plain if plain else instance_norm
-        return fn(x, self.epsilon)
+                update_stats: bool = True) -> torch.Tensor:
+        return instance_norm(x, self.epsilon)
 
 
 class BatchNorm(nn.Module):
@@ -52,8 +49,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                plain: bool = False, update_stats: bool = True
-                ) -> torch.Tensor:
+                update_stats: bool = True) -> torch.Tensor:
         """``train`` normalizes with the batch statistics and, unless
         ``update_stats`` is off, moves the running ones (in place)."""
         xf = x.float()
@@ -76,14 +72,13 @@ class Identity(nn.Module):
         super().__init__()
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                plain: bool = False, update_stats: bool = True
-                ) -> torch.Tensor:
+                update_stats: bool = True) -> torch.Tensor:
         return x
 
 
 def get_norm_layer(norm_type: str = "instance") -> Callable[[int], nn.Module]:
     """``norm_layer(channels) -> module`` whose forward takes ``(x, train,
-    plain, update_stats)``."""
+    update_stats)``."""
     if norm_type == "instance":
         return InstanceNorm
     if norm_type == "batch":

@@ -46,15 +46,14 @@ class ResnetBlock(nn.Module):
         for name in self.norm_names:
             self.add_module(name, get_norm_layer(norm)(dim))
 
-    def forward(self, x: torch.Tensor, train: bool = False,
-                plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         n0, n1 = (self._modules[k] for k in self.norm_names)
         y = self.Conv_0(pad2(x, 1, self.padding_type))
-        y = F.relu(n0(y, train, plain))
+        y = F.relu(n0(y, train))
         if self.use_dropout and train:
             y = F.dropout(y, 0.5, True)
         y = self.Conv_1(pad2(y, 1, self.padding_type))
-        return x + n1(y, train, plain)
+        return x + n1(y, train)
 
 
 class ResnetGenerator(nn.Module):
@@ -98,24 +97,23 @@ class ResnetGenerator(nn.Module):
                             (ngf, ngf * 2, ngf * 4, ngf * 2, ngf)):
             self.add_module(name, make_norm(ch))
 
-    def forward(self, x: torch.Tensor, plain: bool = False,
-                train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x (N, H, W, input_nc) -> (seg logits f32, img f32 in [-1, 1]).
-        ``plain=True`` runs the InstanceNorm kernel's plain version."""
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x (N, H, W, input_nc) -> (seg logits f32, img f32 in [-1, 1])."""
         if self.dtype is not None:
             x = x.to(self.dtype)
         norms = [self._modules[k] for k in self.norm_names]
         with annotate("gen.stem"):
             y = self.Conv_0(pad2(x, 3))
-            y = F.relu(norms[0](y, train, plain))
-            y = F.relu(norms[1](self.Conv_1(y), train, plain))
-            y = F.relu(norms[2](self.Conv_2(y), train, plain))
+            y = F.relu(norms[0](y, train))
+            y = F.relu(norms[1](self.Conv_1(y), train))
+            y = F.relu(norms[2](self.Conv_2(y), train))
         with annotate("gen.blocks"):
             for i in range(self.n_blocks):
-                y = self._modules[f"ResnetBlock_{i}"](y, train, plain)
+                y = self._modules[f"ResnetBlock_{i}"](y, train)
         with annotate("gen.up"):
-            y = F.relu(norms[3](self.ConvTranspose_0(y), train, plain))
-            y = F.relu(norms[4](self.ConvTranspose_1(y), train, plain))
+            y = F.relu(norms[3](self.ConvTranspose_0(y), train))
+            y = F.relu(norms[4](self.ConvTranspose_1(y), train))
             y = pad2(y, 3)
             img = torch.tanh(self.last_conv_img(y).float())
             seg = self.last_conv_seg(y).float()

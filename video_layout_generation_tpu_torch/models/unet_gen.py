@@ -46,18 +46,18 @@ class UnetSkipBlock(nn.Module):
             if not innermost:
                 self.downnorm = make_norm(inner_nc)
 
-    def down(self, x, train: bool, plain: bool):
+    def down(self, x, train: bool):
         if self.outermost:
             return self.downconv(x)
         y = self.downconv(F.leaky_relu(x, 0.2))
-        return y if self.innermost else self.downnorm(y, train, plain)
+        return y if self.innermost else self.downnorm(y, train)
 
-    def up(self, x, y, train: bool, plain: bool):
+    def up(self, x, y, train: bool):
         """``x`` the level's input (the skip), ``y`` what came back up."""
         y = self.upconv(F.relu(y))
         if self.outermost:
             return torch.tanh(y.float())
-        y = self.upnorm(y, train, plain)
+        y = self.upnorm(y, train)
         if self.use_dropout and not self.innermost and train:
             y = F.dropout(y, 0.5, True)
         return torch.cat([x, y], dim=-1)
@@ -90,8 +90,7 @@ class UnetGenerator(nn.Module):
         for i, blk in enumerate(blocks):
             self.add_module(f"UnetSkipBlock_{i}", blk)
 
-    def forward(self, x: torch.Tensor, plain: bool = False,
-                train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.dtype is not None:
             x = x.to(self.dtype)
         levels = [self._modules[f"UnetSkipBlock_{i}"]
@@ -99,7 +98,7 @@ class UnetGenerator(nn.Module):
         skips = []
         for blk in levels:
             skips.append(x)
-            x = blk.down(x, train, plain)
+            x = blk.down(x, train)
         for blk in reversed(levels):
-            x = blk.up(skips.pop(), x, train, plain)
+            x = blk.up(skips.pop(), x, train)
         return x

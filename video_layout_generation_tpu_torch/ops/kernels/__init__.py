@@ -1,7 +1,12 @@
 """Hand-written CUDA kernels of the port, each with its plain PyTorch
 version and its launch counters (``<wrapper>.launches``; the InstanceNorm
-wrapper counts its forward, forward-only and backward launches apart)."""
+wrapper counts its forward, forward-only and backward launches apart).
 
+Each wrapper chooses its route itself: the plain version for a CPU tensor
+or while ``plain()`` is entered (the on-card reference), a launch of the
+kernel otherwise. No layer above this one knows the choice."""
+
+from ._checks import plain, plain_active
 from .conv3x3 import prelu_conv3x3, prelu_conv3x3_plain
 from . import instance_norm   # the module: its wrapper shares its name
 from .lateral import fused_lateral, fused_lateral_plain
@@ -39,7 +44,7 @@ def add_launch_counts(moved: dict) -> None:
         setattr(fn, attr, getattr(fn, attr) + k)
 
 
-__all__ = ["prelu_conv3x3", "prelu_conv3x3_plain", "fused_lateral",
-           "fused_lateral_plain", "ssim_loss", "ssim_planes",
+__all__ = ["plain", "plain_active", "prelu_conv3x3", "prelu_conv3x3_plain",
+           "fused_lateral", "fused_lateral_plain", "ssim_loss", "ssim_planes",
            "ssim_planes_plain", "instance_norm", "reset_launch_counts",
            "launch_counts", "add_launch_counts"]

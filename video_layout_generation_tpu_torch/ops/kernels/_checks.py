@@ -1,11 +1,42 @@
-"""Argument checks and pointer plumbing shared by the kernel wrappers."""
+"""Argument checks, pointer plumbing and the plain mode shared by the
+kernel wrappers."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional
 
 import torch
+
+# True while ``plain()`` is entered. One value for the process, not one a
+# thread: autograd runs a CUDA backward, and a checkpoint's recomputation
+# inside it, on a thread of its own, which must see the forward's mode.
+PLAIN = False
+
+
+@contextlib.contextmanager
+def plain(on: bool = True):
+    """While entered (with ``on``), every kernel wrapper returns its
+    ``*_plain`` version under ordinary autograd, on the card too: the
+    on-card reference. ``plain(False)`` inside it runs the kernels again.
+    Nests, and restores the mode it found on exit, exceptions included.
+
+    A wrapper reads the mode in its forward, and a kernel's autograd
+    Function keeps its forward's route in the backward; a recomputation in
+    the backward (GridNet's ``remat``) reads it again. So enter the mode
+    around the backward pass as well as the forward pass."""
+    global PLAIN
+    before, PLAIN = PLAIN, bool(on)
+    try:
+        yield
+    finally:
+        PLAIN = before
+
+
+def plain_active() -> bool:
+    """Whether ``plain()`` is entered."""
+    return PLAIN
 
 
 def check_cuda(t: torch.Tensor, dtype: torch.dtype, shape: tuple,

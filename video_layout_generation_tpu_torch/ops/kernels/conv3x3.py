@@ -1,9 +1,9 @@
 """Kernel A: fused PReLU -> 3x3 conv -> bias (-> + residual) (-> ReLU), NHWC.
 
 ``prelu_conv3x3`` launches ``csrc/conv3x3.cu`` for a CUDA tensor and runs
-``prelu_conv3x3_plain`` for a CPU tensor. It is the counterpart of the TPU
-kernels ``ops/pallas/conv_packed.py:_fused_impl`` (conv_packed3x3_sparse,
-prelu_conv_packed3x3, prelu_conv_packed3x3_res),
+``prelu_conv3x3_plain`` for a CPU tensor or under ``plain()``. It is the
+counterpart of the TPU kernels ``ops/pallas/conv_packed.py:_fused_impl``
+(conv_packed3x3_sparse, prelu_conv_packed3x3, prelu_conv_packed3x3_res),
 ``ops/pallas/conv1x2.py:_fwd_impl`` (conv3x3_w1x2) and
 ``ops/pallas/conv3x3.py:_conv3x3_fwd_impl`` (conv3x3_pallas) of the JAX
 package, computed on the logical NHWC tensor instead of their packed forms.
@@ -40,6 +40,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import _checks
 from ._build import library
 from ._checks import (check_cuda, data_ptr, raise_on_error, sm_count,
                       stream_ptr)
@@ -195,11 +196,15 @@ def prelu_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     alpha a one-element f32 tensor or None (no PReLU); residual shaped like
     the output or None; stride 1 or 2. The output has x's dtype.
 
-    A CPU tensor runs the plain version; a CUDA tensor (bf16) launches the
-    kernel, and anything the kernel does not take raises. With autograd on,
-    an argument that requires grad gets its gradient from a second launch
-    of the kernel (only x, stride 1, no PReLU, no residual) or else from
-    the library's VJP (see the module's docstring)."""
+    A CPU tensor, or any tensor under ``plain()``, runs the plain version
+    (under ``plain()`` in ordinary autograd); a CUDA tensor (bf16) launches
+    the kernel, and anything the kernel does not take raises. With autograd
+    on, an argument that requires grad gets its gradient from a second
+    launch of the kernel (only x, stride 1, no PReLU, no residual) or else
+    from the library's VJP (see the module's docstring)."""
+    if _checks.PLAIN:
+        return prelu_conv3x3_plain(x, w, b, alpha, residual, stride,
+                                   relu_out)
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
     if torch.is_grad_enabled():

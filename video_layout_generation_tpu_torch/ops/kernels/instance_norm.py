@@ -1,8 +1,9 @@
 """Non-affine InstanceNorm over H, W of an NHWC tensor, forward and backward.
 
 ``instance_norm`` launches ``csrc/instance_norm.cu`` for a CUDA tensor and
-runs ``instance_norm_plain`` for a CPU tensor. It is the counterpart of the
-TPU kernels of ``ops/pallas/instance_norm.py`` of the JAX package:
+runs ``instance_norm_plain`` for a CPU tensor or under ``plain()``. It is
+the counterpart of the TPU kernels of ``ops/pallas/instance_norm.py`` of the
+JAX package:
 
 - ``_pallas_fwd``: the differentiated forward, which keeps what the backward
   needs. Here ``y`` is ``xhat`` (no affine), so one tensor is written and
@@ -38,6 +39,7 @@ import functools
 
 import torch
 
+from . import _checks
 from ._build import library
 from ._checks import (check_cuda, data_ptr, raise_on_error, sm_count,
                       stream_ptr)
@@ -285,11 +287,14 @@ class InstanceNormFunction(torch.autograd.Function):
 def instance_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     """Non-affine InstanceNorm of NHWC ``x`` (f32 or bf16) over H and W.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel,
-    and anything the kernel does not take (another dtype, a tensor that is
-    not contiguous) raises. With autograd on and ``x`` requiring grad the
-    forward keeps y and rstd for the backward kernel; otherwise the forward
-    keeps nothing."""
+    A CPU tensor, or any tensor under ``plain()``, runs the plain version
+    (under ``plain()`` in ordinary autograd); a CUDA tensor launches the
+    kernel, and anything the kernel does not take (another dtype, a tensor
+    that is not contiguous) raises. With autograd on and ``x`` requiring
+    grad the forward keeps y and rstd for the backward kernel; otherwise
+    the forward keeps nothing."""
+    if _checks.PLAIN:
+        return instance_norm_plain(x, eps)
     if x.ndim != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
     if torch.is_grad_enabled() and x.requires_grad:

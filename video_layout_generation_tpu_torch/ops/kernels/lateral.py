@@ -1,10 +1,11 @@
 """Kernel B: a whole channel-preserving LateralBlock in one launch, NHWC.
 
 ``fused_lateral`` launches ``csrc/lateral.cu`` for a CUDA tensor and runs
-``fused_lateral_plain`` for a CPU tensor. It is the counterpart of the TPU
-kernel ``ops/pallas/conv_packed.py:_fused_lateral_impl``
-(fused_lateral_packed3x3) of the JAX package, computed on the logical NHWC
-tensor instead of its 2x2 packed form.
+``fused_lateral_plain`` for a CPU tensor or under ``plain()``. It is the
+counterpart of the TPU kernel
+``ops/pallas/conv_packed.py:_fused_lateral_impl`` (fused_lateral_packed3x3)
+of the JAX package, computed on the logical NHWC tensor instead of its 2x2
+packed form.
 
 Both convs run kernel A's tensor-core inner product; a block computes a
 14 x 14 output tile from a 16 x 16 intermediate that lives in shared memory
@@ -29,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from . import _checks
 from ._build import library
 from ._checks import (check_cuda, data_ptr, raise_on_error, sm_count,
                       stream_ptr)
@@ -92,10 +94,13 @@ def fused_lateral(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     x (N, H, W, C); w0, w1 (3, 3, C, C) HWIO in x's dtype; b0, b1 (C,) f32;
     a0, a1 one-element f32 tensors; residual like x or None.
 
-    A CPU tensor runs the plain version; a CUDA tensor (bf16) launches the
-    kernel, and anything the kernel does not take raises. With autograd on,
-    an argument that requires grad gets its gradient from the library's VJP
-    (see the module's docstring)."""
+    A CPU tensor, or any tensor under ``plain()``, runs the plain version
+    (under ``plain()`` in ordinary autograd); a CUDA tensor (bf16) launches
+    the kernel, and anything the kernel does not take raises. With autograd
+    on, an argument that requires grad gets its gradient from the library's
+    VJP (see the module's docstring)."""
+    if _checks.PLAIN:
+        return fused_lateral_plain(x, w0, b0, a0, w1, b1, a1, residual)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, w0, b0, a0, w1, b1, a1, residual)):

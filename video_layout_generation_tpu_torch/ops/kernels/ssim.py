@@ -1,12 +1,12 @@
 """Fused SSIM loss: one pass over two NHWC images to per-plane means.
 
-``ssim_planes`` / ``ssim_loss`` launch ``csrc/ssim.cu`` for CUDA tensors
-and run ``ssim_planes_plain`` for CPU tensors. They are the counterpart of
-the TPU kernel ``ops/pallas/ssim.py:_ssim_pallas_fwd_impl``
-(ssim_loss_pallas) of the JAX package: per (n, c) plane the 3x3 VALID
-window means of x, y, x^2, y^2 and xy, the SSIM map with C1 = 0.01^2 and
-C2 = 0.03^2, clip((1 - SSIM) / 2, 0, 1) and the plane mean, in f32;
-``ssim_loss`` is the sum over channels of the mean over the batch.
+``ssim_planes`` / ``ssim_loss`` launch ``csrc/ssim.cu`` for CUDA tensors and
+run ``ssim_planes_plain`` for CPU tensors or under ``plain()``. They are the
+counterpart of the TPU kernel ``ops/pallas/ssim.py:_ssim_pallas_fwd_impl``
+(ssim_loss_pallas) of the JAX package: per (n, c) plane the 3x3 VALID window
+means of x, y, x^2, y^2 and xy, the SSIM map with C1 = 0.01^2 and C2 =
+0.03^2, clip((1 - SSIM) / 2, 0, 1) and the plane mean, in f32; ``ssim_loss``
+is the sum over channels of the mean over the batch.
 
 Each call is one launch, and allocates its (N, C) output and nothing else.
 ``ssim_plan`` decides on the host how it runs: one thread-block cluster of
@@ -30,6 +30,7 @@ import math
 import torch
 
 from ..pooling import avg_pool_3x3_valid
+from . import _checks
 from ._build import library
 from ._checks import check_cuda, data_ptr, stream_ptr
 
@@ -273,8 +274,11 @@ def ssim_planes(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """(N, C) f32 plane means of clip((1 - SSIM) / 2, 0, 1) for NHWC ``x``
     and ``y`` of equal shape and dtype (f32 or bf16).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel, and
-    anything the kernel does not take raises."""
+    CPU tensors, or any tensors under ``plain()``, run the plain version
+    (under ``plain()`` in ordinary autograd); CUDA tensors launch the
+    kernel, and anything the kernel does not take raises."""
+    if _checks.PLAIN:
+        return ssim_planes_plain(x, y)
     _check_pair(x, y)
     return _SsimPlanes.apply(x, y)
 

@@ -20,18 +20,19 @@ request, launched on that device, and the rows are gathered in order on
 the first device before the one fetch. A mesh of one device is the path
 without a mesh.
 
-On a CUDA device with the kernels (not ``plain``) the rollout is replayed
-from CUDA graphs: the first request of a packed input shape and dtype runs
-eagerly on the stream the graphs are captured on (it builds the kernels,
-fills the caches of constants and interpolation matrices and lets the
-libraries choose their algorithms), the second captures a chain of graphs in one memory pool, one for the
-input stage (the uint8 cast, the normalisation, the seed frames' edges)
-and one a generated frame, each reading the static outputs of the one
-before, and every later one uploads into the chain's static input and
-replays it. The frames are stacked and packed eagerly after the replay,
-so a result outside the pool outlives the next request's replay. A
-capture that fails raises. ``rollouts`` counts the requests served by
-replay and by an eager run, and the captures.
+On a CUDA device with the kernels (outside ``ops.kernels.plain()``) the
+rollout is replayed from CUDA graphs: the first request of a packed input
+shape and dtype runs eagerly on the stream the graphs are captured on (it
+builds the kernels, fills the caches of constants and interpolation
+matrices and lets the libraries choose their algorithms), the second
+captures a chain of graphs in one memory pool, one for the input stage (the
+uint8 cast, the normalisation, the seed frames' edges) and one a generated
+frame, each reading the static outputs of the one before, and every later
+one uploads into the chain's static input and replays it. The frames are
+stacked and packed eagerly after the replay, so a result outside the pool
+outlives the next request's replay. A capture that fails raises.
+``rollouts`` counts the requests served by replay and by an eager run, and
+the captures.
 
 Under a profiler each request records ``serve.request``, holding
 ``serve.pack``, ``serve.upload``, ``serve.rollout`` (the rollout's
@@ -60,7 +61,7 @@ from .device import require_bf16, resolve_device
 from .io.checkpoint import CheckpointManager
 from .io.weights import params_from_flax
 from .models import get_model_cls
-from .ops.kernels import add_launch_counts, launch_counts
+from .ops.kernels import add_launch_counts, launch_counts, plain_active
 from .parallel.mesh import shard_batch
 from .train.assemble import denormalize_image, normalize_image
 from .train.rollout import make_rollout_fn
@@ -74,13 +75,14 @@ class LayoutPredictor:
                  hned=None, hned_params=None, use_edges: bool = False,
                  edge_scale: int = 1, quantize_transfer: bool = False,
                  n_classes: int = 20, upsample: str = "bilinear",
-                 mesh=None, device="cuda", plain: bool = False):
+                 mesh=None, device="cuda"):
         """``params``: the flax tree, its flat ``"/"``-joined form, or a
         state dict from ``params_from_flax``, of an 8-channel GridNet (the
         no-edge rollout's input) or, with ``use_edges``, of a 10-channel
         one. ``hned`` is then a port HNED, and ``hned_params`` (same forms)
-        is loaded into it when given. ``plain=True`` runs the kernels'
-        plain PyTorch versions (the on-card reference)."""
+        is loaded into it when given. A request served under
+        ``ops.kernels.plain()`` runs the kernels' plain PyTorch versions
+        eagerly (the on-card reference)."""
         if arch not in ("GridNet", "CoordGridNet"):
             raise ValueError(f"serving supports GridNet archs, got {arch}")
         if mesh is not None and batch % mesh.size != 0:
@@ -110,25 +112,21 @@ class LayoutPredictor:
                 hned.load_state_dict(params_from_flax(hned_params),
                                      strict=True)
             self.hned = hned.to(self.device).eval()
-        if not plain:
-            require_bf16(self.device, {"GridNet": self.model,
-                                       "HNED": self.hned})
+        require_bf16(self.device, {"GridNet": self.model, "HNED": self.hned})
         self._rollout = make_rollout_fn(
             self.model, self.hned, n_frames=n_frames, use_edges=use_edges,
-            upsample=upsample, plain=plain, edge_scale=edge_scale)
+            upsample=upsample, edge_scale=edge_scale)
         # uint8 both ways; n_classes > 256 would wrap ids in uint8
         self._quantized_serve = quantize_transfer and n_classes <= 256
         # one a device, the first one's nets the above
-        self._replicas = [_Replica(self.device, self._rollout, self._inputs,
-                                   plain)]
+        self._replicas = [_Replica(self.device, self._rollout, self._inputs)]
         for dev in devices[1:]:
             model = copy.deepcopy(self.model).to(dev)
             hned_r = (copy.deepcopy(self.hned).to(dev)
                       if self.hned is not None else None)
             self._replicas.append(_Replica(dev, make_rollout_fn(
                 model, hned_r, n_frames=n_frames, use_edges=use_edges,
-                upsample=upsample, plain=plain, edge_scale=edge_scale),
-                self._inputs, plain))
+                upsample=upsample, edge_scale=edge_scale), self._inputs))
         self.rollouts = {"replayed": 0, "eager": 0, "captured": 0}
 
     @classmethod
@@ -269,16 +267,15 @@ class LayoutPredictor:
 
 class _Replica:
     """One device's rollout, and the CUDA graphs of it (``_RolloutGraphs``)
-    for each packed input shape and dtype seen twice, where the device is a
-    card and the kernels run (not ``plain``)."""
+    for each packed input shape and dtype seen twice outside
+    ``ops.kernels.plain()``, where the device is a card."""
 
-    def __init__(self, dev: torch.device, rollout, inputs, plain: bool):
+    def __init__(self, dev: torch.device, rollout, inputs):
         self.dev, self.rollout, self.inputs = dev, rollout, inputs
-        # the stream the graphs are captured on, where there are graphs;
-        # the eager rollouts run on it too, so that a capture follows the
-        # libraries' first use of the stream
-        self.stream = (torch.cuda.Stream(dev)
-                       if dev.type == "cuda" and not plain else None)
+        # the stream the graphs are captured on, made by the first request
+        # that may lead to graphs; the eager rollouts run on it too, so
+        # that a capture follows the libraries' first use of the stream
+        self.stream = None
         self.seen = set()
         self.graphs = {}
 
@@ -290,22 +287,26 @@ class _Replica:
 
     def run(self, x: torch.Tensor):
         """((frames, layouts), how) of packed rows ``x`` on this device;
-        ``how`` is "eager", "captured" (then replayed) or "replayed"."""
+        ``how`` is "eager", "captured" (then replayed) or "replayed". A
+        request under ``ops.kernels.plain()`` runs eagerly, with no graph,
+        and does not count towards a capture."""
         key = (tuple(x.shape), x.dtype)
         on_card = (torch.cuda.device(self.dev) if self.dev.type == "cuda"
                    else contextlib.nullcontext())
         with on_card:
+            if self.dev.type != "cuda" or plain_active():
+                return self.rollout(*self.inputs(x)), "eager"
+            if self.stream is None:
+                self.stream = torch.cuda.Stream(self.dev)
             g = self.graphs.get(key)
             how = "replayed"
-            if g is None and self.stream is not None and key in self.seen:
+            if g is None and key in self.seen:
                 g = self.graphs[key] = _RolloutGraphs(
                     x, self.inputs, self.rollout, self.stream)
                 how = "captured"
             self.seen.add(key)
             if g is not None:
                 return self.rollout.finish(*g.replay()), how
-            if self.stream is None:
-                return self.rollout(*self.inputs(x)), "eager"
             here = torch.cuda.current_stream()
             self.stream.wait_stream(here)
             with torch.cuda.stream(self.stream):

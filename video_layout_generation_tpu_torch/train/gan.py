@@ -33,7 +33,6 @@ from typing import Optional
 
 import torch
 
-from ..device import resolve_device
 from ..losses.ce import cross_entropy_loss
 from ..losses.gan import gan_loss, gradient_penalty
 from ..losses.pixel import l1_loss
@@ -41,8 +40,8 @@ from .assemble import normalize_image, normalize_model_output
 from ..parallel.collectives import plain_share, sum_over_ranks
 from ..parallel.mesh import process_count
 from .state import TrainState
-from .steps import (_frozen_nets, _maybe_flip, _to_device, check_bf16_nets,
-                    decode_batch, flip_coin, prepare_inputs)
+from .steps import (_maybe_flip, _to_device, decode_batch, flip_coin,
+                    place_nets, prepare_inputs)
 
 
 @dataclass
@@ -78,8 +77,7 @@ def make_gan_train_step(gen: torch.nn.Module, disc: torch.nn.Module,
                         gan_mode: str = "lsgan", w_l1: float = 40.0,
                         w_style: float = 20.0, w_seg: float = 10.0,
                         lambda_gp: float = 10.0, flip_mode: str = "batch",
-                        disc_batch_stats: bool = False, plain: bool = False,
-                        device="cuda",
+                        disc_batch_stats: bool = False, device="cuda",
                         generator: Optional[torch.Generator] = None,
                         gp_generator: Optional[torch.Generator] = None):
     """Returns ``gan_step(state, batch) -> (state, metrics)`` for a
@@ -96,23 +94,16 @@ def make_gan_train_step(gen: torch.nn.Module, disc: torch.nn.Module,
         raise ValueError("a BatchNorm discriminator needs the global batch's "
                          "statistics, which are not gathered across ranks; "
                          "use --norm instance over more than one rank")
-    dev = resolve_device(device)
-    nets = _frozen_nets(hned, combined_loss)
-    check_bf16_nets(dev, gen, nets, plain)
-    gen.to(dev)
+    dev = place_nets(gen, hned, combined_loss, device)
     disc.to(dev)
-    for net in nets.values():
-        if net is not None:
-            net.to(dev).eval()
 
     def run_d(z, update_stats: bool = True):
-        return disc(z, train=disc_batch_stats, plain=plain,
-                    update_stats=update_stats)
+        return disc(z, train=disc_batch_stats, update_stats=update_stats)
 
     def gan_step(state: GanTrainState, batch):
         with torch.no_grad():
             batch = decode_batch(_to_device(batch, dev))
-            x, f3n = prepare_inputs(hned, batch, plain)
+            x, f3n = prepare_inputs(hned, batch)
             s3 = batch["seg3"]
             f1n = normalize_image(batch["img1"])
             f2n = normalize_image(batch["img2"])
@@ -124,7 +115,7 @@ def make_gan_train_step(gen: torch.nn.Module, disc: torch.nn.Module,
 
         with torch.enable_grad():
             # ---- the generator forward, once ----------------------------
-            seg_logits, img = gen(x, plain=plain)
+            seg_logits, img = gen(x)
             img_n = normalize_model_output(img)
             fake_detached = torch.cat([f1n, f2n, img_n.detach()], dim=-1)
 
@@ -154,7 +145,7 @@ def make_gan_train_step(gen: torch.nn.Module, disc: torch.nn.Module,
                     p.requires_grad_(True)
             loss_gan = gan_loss(pred_fake, True, gan_mode)
             loss_l1 = l1_loss(img_n, f3n) * w_l1
-            loss_style = combined_loss(img_n, f3n, plain=plain) * w_style
+            loss_style = combined_loss(img_n, f3n) * w_style
             loss_seg = cross_entropy_loss(seg_logits, s3) * w_seg
             loss_g = loss_gan + loss_l1 + loss_style + loss_seg
             g_grads = _grads(loss_g, state.gen)

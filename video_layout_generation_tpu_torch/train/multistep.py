@@ -40,7 +40,6 @@ from typing import Dict, Mapping, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..device import resolve_device
 from ..losses.ce import cross_entropy_loss
 from ..losses.pixel import l1_loss
 from ..models.hned import hned_fused_edge
@@ -48,8 +47,8 @@ from .assemble import (assemble_model_input, const_like, denormalize_image,
                        normalize_image, normalize_model_output)
 from ..parallel.collectives import draw_rows
 from ..utils.profiling import annotate
-from .steps import (_frozen_nets, _maybe_flip, _to_device, apply_shared,
-                    check_bf16_nets, flip_coin)
+from .steps import (_maybe_flip, _to_device, apply_shared, flip_coin,
+                    place_nets)
 
 def decode_window_batch(batch: Mapping[str, torch.Tensor]):
     """Device-side decode of the stacked window batch -> (imgs f32 in [0,1]
@@ -94,8 +93,8 @@ def make_multistep_loss_fn(model, hned, combined_loss, k: int,
                            layout_noise: float = 0.0,
                            image_weight: float = 1.0,
                            image_discount: float = 1.0):
-    """Build ``loss_fn(imgs, segs, coin, noise=None, plain=False) -> (loss,
-    metrics)`` over K autoregressive steps. imgs (N,K+2,H,W,3) in [0,1];
+    """Build ``loss_fn(imgs, segs, coin, noise=None) -> (loss, metrics)``
+    over K autoregressive steps. imgs (N,K+2,H,W,3) in [0,1];
     segs (N,K+2,H,W) int; coin a bool (the whole-batch flip); noise the
     dict of ``draw_rollout_noise`` (``feedback`` (K-1,N,H,W,3) unit
     normals; ``layout_mask`` (K-1,N,H,W,1) bool and ``layout_cls``
@@ -131,21 +130,20 @@ def make_multistep_loss_fn(model, hned, combined_loss, k: int,
     w_vals = tuple(tuple(float(v) for v in row) for row in w_mat)
     remat = remat_steps and k > 1
 
-    def step_terms(x, tf, ts, plain):
-        seg_logits, img = model(x, plain=plain)
+    def step_terms(x, tf, ts):
+        seg_logits, img = model(x)
         img_n = normalize_model_output(img)
         terms = torch.stack([
             l1_loss(img_n, tf) * w_l1,
-            combined_loss(img_n, tf, plain=plain) * w_style,
+            combined_loss(img_n, tf) * w_style,
             cross_entropy_loss(seg_logits, ts) * w_seg])
         return terms, seg_logits, img_n
 
-    def edge(frame, plain):
+    def edge(frame):
         with torch.no_grad():
-            return hned_fused_edge(hned, frame.contiguous(), plain)
+            return hned_fused_edge(hned, frame.contiguous())
 
-    def loss_fn(imgs, segs, coin, noise: Optional[dict] = None,
-                plain: bool = False):
+    def loss_fn(imgs, segs, coin, noise: Optional[dict] = None):
         if imgs.shape[1] != k + 2:
             raise ValueError(f"multistep k={k} needs {k + 2}-frame windows, "
                              f"got {imgs.shape[1]}")
@@ -154,7 +152,7 @@ def make_multistep_loss_fn(model, hned, combined_loss, k: int,
                      segs[:, 0].float()[..., None],
                      segs[:, 1].float()[..., None]]
             if use_edges:
-                seeds += [edge(imgs[:, i], plain) for i in (0, 1)]
+                seeds += [edge(imgs[:, i]) for i in (0, 1)]
             tgt_f = [normalize_image(imgs[:, 2 + i]) for i in range(k)]
             tgt_s = [segs[:, 2 + i].contiguous() for i in range(k)]
             if coin:
@@ -169,11 +167,10 @@ def make_multistep_loss_fn(model, hned, combined_loss, k: int,
             x = assemble_model_input(s_o, f_o, f_n, s_n, *edges)
             if remat:
                 terms, seg_logits, img_n = checkpoint(
-                    step_terms, x, tgt_f[i], tgt_s[i], plain,
+                    step_terms, x, tgt_f[i], tgt_s[i],
                     use_reentrant=False, preserve_rng_state=False)
             else:
-                terms, seg_logits, img_n = step_terms(x, tgt_f[i], tgt_s[i],
-                                                      plain)
+                terms, seg_logits, img_n = step_terms(x, tgt_f[i], tgt_s[i])
             per_step.append(terms)
             if i == k - 1:
                 break                   # the last feedback is never read
@@ -187,8 +184,7 @@ def make_multistep_loss_fn(model, hned, combined_loss, k: int,
                 img_fb = img_n + feedback_noise * noise["feedback"][i]
             carry = [f_n, img_fb, s_n, s_next]
             if use_edges:
-                carry += [edges[1],
-                          edge(denormalize_image(img_fb.detach()), plain)]
+                carry += [edges[1], edge(denormalize_image(img_fb.detach()))]
         per_step = torch.stack(per_step)                     # (K, 3)
         terms = (const_like(w_vals, per_step) * per_step).mean(dim=0)
         if renorm is not None:
@@ -243,8 +239,7 @@ def make_multistep_train_step(model: torch.nn.Module, hned, combined_loss,
                               feedback_noise: float = 0.0,
                               layout_noise: float = 0.0,
                               image_weight: float = 1.0,
-                              image_discount: float = 1.0,
-                              plain: bool = False, device="cuda",
+                              image_discount: float = 1.0, device="cuda",
                               generator: Optional[torch.Generator] = None,
                               noise_generator: Optional[torch.Generator]
                               = None, seg_classes: int = 20):
@@ -261,13 +256,7 @@ def make_multistep_train_step(model: torch.nn.Module, hned, combined_loss,
     if flip_mode not in ("batch", "none"):
         raise ValueError(f"multistep flip_mode must be 'batch' or 'none', "
                          f"got {flip_mode!r}")
-    dev = resolve_device(device)
-    nets = _frozen_nets(hned, combined_loss)
-    check_bf16_nets(dev, model, nets, plain)
-    model.to(dev)
-    for net in nets.values():
-        if net is not None:
-            net.to(dev).eval()
+    dev = place_nets(model, hned, combined_loss, device)
     loss_fn = make_multistep_loss_fn(
         model, hned, combined_loss, k, w_l1, w_style, w_seg, remat_steps,
         discount, feedback_noise, layout_noise, image_weight, image_discount)
@@ -282,7 +271,7 @@ def make_multistep_train_step(model: torch.nn.Module, hned, combined_loss,
                                        seg_classes, feedback_noise,
                                        layout_noise, noise_generator, dev)
         with annotate("step.forward"), torch.enable_grad():
-            total, metrics = loss_fn(imgs, segs, coin, noise, plain)
+            total, metrics = loss_fn(imgs, segs, coin, noise)
         return apply_shared(state, total, metrics)
 
     return train_step

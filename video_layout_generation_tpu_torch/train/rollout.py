@@ -40,13 +40,12 @@ from .assemble import (assemble_model_input, denormalize_image,
 
 def make_rollout_fn(model: Callable, hned: Optional[Callable] = None,
                     n_frames: int = 8, use_edges: bool = False,
-                    upsample: str = "bilinear", plain: bool = False,
-                    edge_scale: int = 1) -> Callable:
+                    upsample: str = "bilinear", edge_scale: int = 1
+                    ) -> Callable:
     """Build ``rollout(img1, img2, seg1, seg2) -> (imgs, segs)``.
 
     ``model`` is a port GridNet (10 input channels with ``use_edges``, else
-    8) and ``hned`` a port HNED. ``plain=True`` runs the kernels' plain
-    PyTorch versions (the on-card reference).
+    8) and ``hned`` a port HNED.
 
     img1/img2: (N, H, W, 3) ImageNet-normalized seed frames, older first;
     seg1/seg2: (N, H, W, 1) float class ids. Returns imgs (N, T, H, W, 3)
@@ -71,7 +70,7 @@ def make_rollout_fn(model: Callable, hned: Optional[Callable] = None,
         with annotate("rollout.edge"):
             img = denormalize_image(f)
             if edge_scale == 1:
-                return hned_fused_edge(hned, img, plain)
+                return hned_fused_edge(hned, img)
             h, w = img.shape[1], img.shape[2]
             # HNED's 4 stride-2 pools need >= 16 px on each side
             sh, sw = h // edge_scale, w // edge_scale
@@ -80,12 +79,12 @@ def make_rollout_fn(model: Callable, hned: Optional[Callable] = None,
                     f"edge_scale={edge_scale} shrinks {h}x{w} frames to "
                     f"{sh}x{sw}; HNED needs at least 16x16 inputs")
             small = resize_bilinear(img, (sh, sw), align_corners=False)
-            return resize_bilinear(hned_fused_edge(hned, small, plain),
+            return resize_bilinear(hned_fused_edge(hned, small),
                                    (h, w), align_corners=False)
 
     def step(x):
         with annotate("rollout.step"):
-            seg_logits, img = model(x, plain=plain, upsample=upsample)
+            seg_logits, img = model(x, upsample=upsample)
             img_n = normalize_model_output(img.float())
             seg_next = seg_logits.float().argmax(dim=-1, keepdim=True)
             return img_n, seg_next

@@ -27,30 +27,28 @@ from typing import Optional
 
 import torch
 
-from ..device import resolve_device
 from ..models.hned import hned_fused_edge
 from .assemble import (assemble_model_input, denormalize_image,
                        normalize_image, normalize_model_output)
 from ..parallel.collectives import draw_rows
 from ..utils.profiling import annotate
 from .multistep import decode_window_batch
-from .steps import (_frozen_nets, _maybe_flip, _to_device, apply_shared,
-                    check_bf16_nets, flip_coin, make_loss_fn)
+from .steps import (_maybe_flip, _to_device, apply_shared, flip_coin,
+                    make_loss_fn, place_nets)
 
 
 def make_scheduled_loss_fn(model, hned, combined_loss, w_l1: float = 40.0,
                            w_style: float = 20.0, w_seg: float = 10.0):
-    """Build ``loss_fn(imgs, segs, mask, coin, plain=False) -> (loss,
-    metrics)``: imgs (N,T,H,W,3) in [0,1], segs (N,T,H,W) int, T >= 4;
+    """Build ``loss_fn(imgs, segs, mask, coin) -> (loss, metrics)``: imgs (N,T,H,W,3) in [0,1], segs (N,T,H,W) int, T >= 4;
     mask (N,1,1,1) bool, true where the example gets its own prediction;
     coin a bool, the whole-batch flip applied after edge extraction."""
     use_edges = hned is not None
     loss_fn = make_loss_fn(model, combined_loss, w_l1, w_style, w_seg)
 
-    def edge(frame, plain):
-        return hned_fused_edge(hned, frame.contiguous(), plain)
+    def edge(frame):
+        return hned_fused_edge(hned, frame.contiguous())
 
-    def scheduled_loss(imgs, segs, mask, coin, plain: bool = False):
+    def scheduled_loss(imgs, segs, mask, coin):
         if imgs.shape[1] < 4:
             raise ValueError("scheduled sampling needs >= 4-frame windows, "
                              f"got {imgs.shape[1]}")
@@ -61,23 +59,22 @@ def make_scheduled_loss_fn(model, hned, combined_loss, w_l1: float = 40.0,
             s0c, s1c, s2c = (segs[:, i].float()[..., None]
                              for i in (-4, -3, -2))
             s3 = segs[:, -1].contiguous()
-            e0, e1 = (edge(f0, plain), edge(f1, plain)) if use_edges \
-                else (None, None)
+            e0, e1 = (edge(f0), edge(f1)) if use_edges else (None, None)
             # teacher pass (detached): predict frame 2 from (0, 1)
             x_t = assemble_model_input(s0c, f0n, f1n, s1c, e0, e1)
-            t_logits, t_img = model(x_t, plain=plain)
+            t_logits, t_img = model(x_t)
             f2_hat = normalize_model_output(t_img)
             s2_hat = t_logits.argmax(dim=-1).float()[..., None]
             f2_star = torch.where(mask, f2_hat, f2n)
             s2_star = torch.where(mask, s2_hat, s2c)
             # the edge of the mixed frame, as the rollout recomputes it
-            e2_star = (edge(denormalize_image(f2_star), plain)
-                       if use_edges else None)
+            e2_star = (edge(denormalize_image(f2_star)) if use_edges
+                       else None)
             x = assemble_model_input(s1c, f1n, f2_star, s2_star, e1,
                                      e2_star)
             if coin:
                 x, f3n, s3 = _maybe_flip(True, x, f3n, s3)
-        total, (metrics, _, _) = loss_fn(x, f3n, s3, plain)
+        total, (metrics, _, _) = loss_fn(x, f3n, s3)
         return total, metrics
 
     return scheduled_loss
@@ -94,8 +91,7 @@ def draw_sampling_mask(n: int, p: float,
 
 def make_scheduled_train_step(model: torch.nn.Module, hned, combined_loss,
                               w_l1: float = 40.0, w_style: float = 20.0,
-                              w_seg: float = 10.0, plain: bool = False,
-                              device="cuda",
+                              w_seg: float = 10.0, device="cuda",
                               generator: Optional[torch.Generator] = None,
                               noise_generator: Optional[torch.Generator]
                               = None):
@@ -105,13 +101,7 @@ def make_scheduled_train_step(model: torch.nn.Module, hned, combined_loss,
     probability that an example's newest input pair is the model's own
     prediction; the mask comes from ``noise_generator`` (on ``device``),
     the coin from ``generator`` (host)."""
-    dev = resolve_device(device)
-    nets = _frozen_nets(hned, combined_loss)
-    check_bf16_nets(dev, model, nets, plain)
-    model.to(dev)
-    for net in nets.values():
-        if net is not None:
-            net.to(dev).eval()
+    dev = place_nets(model, hned, combined_loss, device)
     loss_fn = make_scheduled_loss_fn(model, hned, combined_loss, w_l1,
                                      w_style, w_seg)
 
@@ -123,7 +113,7 @@ def make_scheduled_train_step(model: torch.nn.Module, hned, combined_loss,
             mask = draw_sampling_mask(n, p, noise_generator, dev)
             coin = flip_coin("batch", n, generator, dev)
         with annotate("step.forward"), torch.enable_grad():
-            total, metrics = loss_fn(imgs, segs, mask, coin, plain)
+            total, metrics = loss_fn(imgs, segs, mask, coin)
         state, metrics = apply_shared(state, total, metrics)
         metrics["ss_p"] = p
         return state, metrics

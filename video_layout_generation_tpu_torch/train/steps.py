@@ -80,15 +80,15 @@ def decode_batch(batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def prepare_inputs(hned: Optional[Callable], batch: Mapping[str, torch.Tensor],
-                   plain: bool = False):
+def prepare_inputs(hned: Optional[Callable],
+                   batch: Mapping[str, torch.Tensor]):
     """Edges + normalization + channel assembly -> (x, frame3 normalized).
     ``hned`` is a port HNED or None (8-channel input)."""
     f1, f2, f3 = batch["img1"], batch["img2"], batch["img3"]
     s1, s2 = batch["seg1"], batch["seg2"]
     if hned is not None:
-        e1 = hned_fused_edge(hned, f1, plain)
-        e2 = hned_fused_edge(hned, f2, plain)
+        e1 = hned_fused_edge(hned, f1)
+        e2 = hned_fused_edge(hned, f2)
     else:
         e1 = e2 = None
     f1n, f2n, f3n = (normalize_image(f) for f in (f1, f2, f3))
@@ -97,14 +97,14 @@ def prepare_inputs(hned: Optional[Callable], batch: Mapping[str, torch.Tensor],
 
 def make_loss_fn(model: Callable, combined_loss, w_l1: float = 40.0,
                  w_style: float = 20.0, w_seg: float = 10.0):
-    """Build ``loss_fn(x, f3n, s3, plain=False) -> (loss, (metrics,
-    seg_logits, img_n))``."""
+    """Build ``loss_fn(x, f3n, s3) -> (loss, (metrics, seg_logits,
+    img_n))``."""
 
-    def loss_fn(x, f3n, s3, plain: bool = False):
-        seg_logits, img = model(x, plain=plain)
+    def loss_fn(x, f3n, s3):
+        seg_logits, img = model(x)
         img_n = normalize_model_output(img)
         loss_l1 = l1_loss(img_n, f3n) * w_l1
-        loss_style = combined_loss(img_n, f3n, plain=plain) * w_style
+        loss_style = combined_loss(img_n, f3n) * w_style
         loss_seg = cross_entropy_loss(seg_logits, s3) * w_seg
         total = loss_l1 + loss_style + loss_seg
         metrics = {"loss": total, "loss_l1": loss_l1,
@@ -150,27 +150,32 @@ def flip_coin(flip_mode: str, n: int, generator, device):
     raise ValueError(f"unknown flip_mode {flip_mode!r}")
 
 
-def _frozen_nets(hned, combined_loss) -> dict:
-    return {"HNED": hned,
-            "the VGG19 trunk of CombinedLoss": combined_loss.vgg_model}
-
-
-def check_bf16_nets(dev: torch.device, model: torch.nn.Module, frozen: dict,
-                    plain: bool) -> None:
-    """``require_bf16`` over the frozen nets and over ``model`` where its
-    convs are kernels A and B (a GridNet), unless ``plain``: a net built
-    with another dtype raises by name here, not inside its first conv."""
-    if plain:
-        return
+def place_nets(model: torch.nn.Module, hned: Optional[torch.nn.Module],
+               combined_loss, device) -> torch.device:
+    """The step factories' placement: resolve ``device``, run
+    ``require_bf16`` over the frozen nets (``hned``, the VGG19 trunk of
+    ``combined_loss``) and over ``model`` where its convs are kernels A and
+    B (a GridNet), so that a net built with another dtype raises by name
+    here and not inside its first conv; move the nets there and set the
+    frozen ones to eval mode. Returns the device."""
+    dev = resolve_device(device)
+    frozen = {"HNED": hned,
+              "the VGG19 trunk of CombinedLoss": combined_loss.vgg_model}
+    checked = frozen
     if any(isinstance(m, Conv3x3) for m in model.modules()):
-        frozen = {type(model).__name__: model, **frozen}
-    require_bf16(dev, frozen)
+        checked = {type(model).__name__: model, **frozen}
+    require_bf16(dev, checked)
+    model.to(dev)
+    for net in frozen.values():
+        if net is not None:
+            net.to(dev).eval()
+    return dev
 
 
 def make_train_step(model: torch.nn.Module, hned: Optional[torch.nn.Module],
                     combined_loss, w_l1: float = 40.0, w_style: float = 20.0,
                     w_seg: float = 10.0, flip_mode: str = "batch",
-                    plain: bool = False, device="cuda",
+                    device="cuda",
                     generator: Optional[torch.Generator] = None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
@@ -181,29 +186,23 @@ def make_train_step(model: torch.nn.Module, hned: Optional[torch.nn.Module],
     holds the detached loss terms on the device. ``generator`` draws the
     flip's coin. The model always runs with ``train=False`` (no dropout,
     running averages in a BatchNorm generator), as the JAX step applies it.
-    ``plain=True`` runs every kernel's plain PyTorch version; a CUDA device
-    otherwise raises for a net not built for bf16, GridNet included."""
+    A CUDA device raises for a net not built for bf16, GridNet included
+    (``place_nets``)."""
     if flip_mode not in ("batch", "per_example", "none"):
         raise ValueError(f"unknown flip_mode {flip_mode!r}")
-    dev = resolve_device(device)
-    nets = _frozen_nets(hned, combined_loss)
-    check_bf16_nets(dev, model, nets, plain)
-    model.to(dev)
-    for net in nets.values():
-        if net is not None:
-            net.to(dev).eval()
+    dev = place_nets(model, hned, combined_loss, device)
     loss_fn = make_loss_fn(model, combined_loss, w_l1, w_style, w_seg)
 
     def train_step(state, batch):
         with annotate("step.inputs"), torch.no_grad():
             batch = decode_batch(_to_device(batch, dev))
-            x, f3n = prepare_inputs(hned, batch, plain)
+            x, f3n = prepare_inputs(hned, batch)
             s3 = batch["seg3"]
             coin = flip_coin(flip_mode, x.shape[0], generator, dev)
             if coin is not None:
                 x, f3n, s3 = _maybe_flip(coin, x, f3n, s3)
         with annotate("step.forward"), torch.enable_grad():
-            total, (metrics, _, _) = loss_fn(x, f3n, s3, plain)
+            total, (metrics, _, _) = loss_fn(x, f3n, s3)
         return apply_shared(state, total, metrics)
 
     return train_step
@@ -237,33 +236,26 @@ def _to_device(batch: Mapping, device: torch.device) -> dict:
 def make_eval_step(model: torch.nn.Module, hned: Optional[torch.nn.Module],
                    combined_loss, w_l1: float = 40.0, w_style: float = 20.0,
                    w_seg: float = 10.0, n_classes: Optional[int] = None,
-                   plain: bool = False, device="cuda"):
+                   device="cuda"):
     """Returns ``eval_step(batch) -> (metrics, seg_pred_ids, img_pred_norm)``.
 
     The three nets (``model``, ``hned`` or None, the VGG trunk of
     ``combined_loss``) are moved to ``device`` and set to eval mode here; a
     CUDA device raises when the process has none, or when a net was not
-    built for bf16 and ``plain`` is off. ``batch`` maps names to numpy arrays
-    or tensors (``packed6``, or ``img1..3`` / ``seg1..3``) and is moved there
-    too. With
-    ``n_classes`` set, ``metrics["cm"]`` carries the (C, C) confusion matrix
-    [target, pred] of the batch. Everything returned stays on the device.
-    ``plain=True`` runs every kernel's plain PyTorch version (the on-card
-    reference)."""
-    dev = resolve_device(device)
-    nets = _frozen_nets(hned, combined_loss)
-    check_bf16_nets(dev, model, nets, plain)
-    for net in (model, *nets.values()):
-        if net is not None:
-            net.to(dev).eval()
+    built for bf16 (``place_nets``). ``batch`` maps names to numpy arrays
+    or tensors (``packed6``, or ``img1..3`` / ``seg1..3``) and is moved
+    there too. With ``n_classes`` set, ``metrics["cm"]`` carries the (C, C)
+    confusion matrix [target, pred] of the batch. Everything returned stays
+    on the device."""
+    dev = place_nets(model, hned, combined_loss, device)
+    model.eval()
     loss_fn = make_loss_fn(model, combined_loss, w_l1, w_style, w_seg)
 
     @torch.no_grad()
     def eval_step(batch):
         batch = decode_batch(_to_device(batch, dev))
-        x, f3n = prepare_inputs(hned, batch, plain)
-        _, (metrics, seg_logits, img_n) = loss_fn(x, f3n, batch["seg3"],
-                                                  plain)
+        x, f3n = prepare_inputs(hned, batch)
+        _, (metrics, seg_logits, img_n) = loss_fn(x, f3n, batch["seg3"])
         seg_ids = seg_logits.argmax(dim=-1)
         if n_classes is not None:
             metrics = dict(metrics, cm=confusion_matrix(

@@ -204,8 +204,8 @@ class _RolloutModel:
         self.model = model
         self.dtype = model.dtype
 
-    def __call__(self, x, plain: bool = False, upsample: str = "bilinear"):
-        return self.model(x, plain=plain)
+    def __call__(self, x, upsample: str = "bilinear"):
+        return self.model(x)
 
 
 class Trainer:
@@ -318,7 +318,7 @@ class Trainer:
                 self.model, self.hned, self.combined,
                 generator=self._flip_gen, **kw)
         self._eval_step = make_eval_step(
-            self.model, self.hned, self.combined.eval_variant(),
+            self.model, self.hned, self.combined,
             n_classes=cfg.n_classes, **kw)
         ro_model = (self.model if cfg.arch in ("GridNet", "CoordGridNet")
                     else _RolloutModel(self.model))
