@@ -1223,12 +1223,15 @@ def run_slice(torch, kern, seed: int):
     main_s = time.perf_counter() - t0
     check(pred.rollouts == {"replayed": 2, "eager": 1, "captured": 1},
           f"slice: requests served {pred.rollouts}")
+    check(pred.staging == {"staged": 3, "buffers": 1},
+          f"slice: staging {pred.staging}")
     replayed = replayed_launches(torch, "slice", pred,
                                  lambda: pred.predict(*req),
                                  LAUNCHES_PER_ROLLOUT)
     print(f"slice: 3 requests in {main_s:.3f} s (eager, capture, replay); "
           f"launches of the eager request by the counters {launches}; of a "
-          f"replayed request by the trace {replayed}", flush=True)
+          f"replayed request by the trace {replayed}; requests served "
+          f"{pred.rollouts}, staging {pred.staging}", flush=True)
 
     check_output("full", *full, BATCH)
     check_output("padded", *padded, 5)
@@ -1595,12 +1598,15 @@ def run_edge_rollout(torch, kern, weights, seed: int):
     main_s = time.perf_counter() - t0
     check(pred.rollouts == {"replayed": 1, "eager": 1, "captured": 1},
           f"edge rollout: requests served {pred.rollouts}")
+    check(pred.staging == {"staged": 2, "buffers": 1},
+          f"edge rollout: staging {pred.staging}")
     replayed = replayed_launches(torch, "edge rollout", pred,
                                  lambda: pred.predict(*req),
                                  LAUNCHES_PER_EDGE_ROLLOUT)
     print(f"edge rollout: 2 requests in {main_s:.3f} s (eager, capture); "
           f"launches of the eager request by the counters {launches}; of a "
-          f"replayed request by the trace {replayed}", flush=True)
+          f"replayed request by the trace {replayed}; requests served "
+          f"{pred.rollouts}, staging {pred.staging}", flush=True)
     check_output("edge full", *full, BATCH)
     check_output("edge padded", *padded, 5)
     check(np.array_equal(padded[0], full[0][:5])

@@ -18,7 +18,12 @@ import torch
 from video_layout_generation_tpu.models import gridnet as jgrid
 from video_layout_generation_tpu.serving import \
     LayoutPredictor as JaxPredictor
+from video_layout_generation_tpu_torch.parallel import make_mesh
+from video_layout_generation_tpu_torch.parallel.mesh import shard_batch
+from video_layout_generation_tpu_torch import serving
 from video_layout_generation_tpu_torch.serving import LayoutPredictor
+from video_layout_generation_tpu_torch.train.assemble import \
+    denormalize_image
 from video_layout_generation_tpu_torch.train.rollout import make_rollout_fn
 from video_layout_generation_tpu_torch.train.steps import make_train_step
 
@@ -73,6 +78,94 @@ def test_pipelined_and_many_equal_predict(params):
     np.testing.assert_array_equal(l, np.concatenate([s[1] for s in singles]))
     with pytest.raises(ValueError, match="depth"):
         pred.predict_pipelined(iter(reqs), depth=0)
+
+
+def _pack_before_staging(pred, img1, img2, seg1, seg2):
+    """The request packed as before staging buffers: one fresh array, each
+    input padded to the batch by its last example, then concatenated."""
+    n = img1.shape[0]
+
+    def pad(x):
+        if x.shape[0] == pred.batch:
+            return x
+        return np.concatenate(
+            [x, np.repeat(x[-1:], pred.batch - x.shape[0], axis=0)])
+
+    x = np.concatenate(
+        [pad(np.asarray(img1, np.float32)),
+         pad(np.asarray(img2, np.float32)),
+         pad(np.asarray(seg1, np.float32))[..., None],
+         pad(np.asarray(seg2, np.float32))[..., None]], axis=-1)
+    if pred.quantize_transfer:
+        x = np.concatenate(
+            [x[..., 0:6] * 255.0 + 0.5, x[..., 6:8]],
+            axis=-1).astype(np.uint8)
+    return x, n
+
+
+@torch.inference_mode()
+def _predict_before_staging(pred, *req):
+    """``predict`` as before staging buffers, on the CPU: the packed array
+    up, one packed array (frames and f32 ids, or uint8) back, decoded on
+    the host."""
+    x, n = _pack_before_staging(pred, *req)
+    shards = ([torch.from_numpy(x)] if pred.mesh is None
+              else [sh["x"] for sh in shard_batch({"x": x}, pred.mesh)])
+    outs = [rep.run(part)[0] for rep, part in zip(pred._replicas, shards)]
+    imgs, segs = (torch.cat([o[j] for o in outs]) for j in (0, 1))
+    f = denormalize_image(imgs[:n]).clamp(0.0, 1.0)
+    lay = segs[:n]
+    if pred.quantize_transfer:
+        out = torch.cat([(f * 255.0 + 0.5).to(torch.uint8),
+                         lay.to(torch.uint8)], dim=-1).numpy()
+        frames = out[..., :3].astype(np.float32) / 255.0
+    else:
+        out = torch.cat([f, lay], dim=-1).numpy()
+        frames = out[..., :3]
+    return frames, out[..., 3].astype(np.int32)
+
+
+@pytest.mark.parametrize("threaded", [False, True],
+                         ids=["calling_thread", "intra_op_threads"])
+@pytest.mark.parametrize("devices", [1, 2], ids=["no_mesh", "mesh2"])
+@pytest.mark.parametrize("quantize", [False, True], ids=["f32", "uint8"])
+@pytest.mark.parametrize("n", [4, 3], ids=["full", "padded"])
+def test_staged_requests_equal_the_packed_path(params, n, quantize, devices,
+                                               threaded, monkeypatch):
+    """Requests of one shape share one staging set: each is packed into its
+    upload buffer byte for byte as the one packed array was, and its
+    frames and layouts equal the packed path's in value, dtype and shape,
+    in fresh arrays that later requests leave as they were; with the host
+    copies on the calling thread (every copy at this size) and on the
+    intra-op threads (a large request's)."""
+    if threaded:
+        monkeypatch.setattr(serving, "_THREADED_COPY_BYTES", 0)
+    mesh = make_mesh(["cpu"] * 2) if devices == 2 else None
+    pred = LayoutPredictor("GridNet", params, device="cpu", mesh=mesh,
+                           **dict(KW, n_frames=2, quantize_transfer=quantize))
+    answers = []
+    for seed in (10, 11, 12):
+        req = _request(n, seed)
+        if seed == 12:   # views with a negative stride
+            req = tuple(np.flip(a, axis=1) for a in req)
+        got = pred.predict(*req)
+        (st,) = pred._staging.values()
+        packed, _ = _pack_before_staging(pred, *req)
+        staged = st.x.numpy()
+        assert staged.dtype == packed.dtype and staged.shape == packed.shape
+        assert staged.tobytes() == packed.tobytes()
+        want = _predict_before_staging(pred, *req)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+            assert not any(np.shares_memory(a, buf.numpy())
+                           for buf in (st.x, st.frames, st.layouts))
+        answers.append((got, [a.copy() for a in got]))
+    for got, copies in answers:
+        for a, b in zip(got, copies):
+            assert a.tobytes() == b.tobytes()
+    assert pred.staging == {"staged": 3, "buffers": 1}
+    assert pred.rollouts == {"replayed": 0, "eager": 3, "captured": 0}
 
 
 def test_cpu_predictor_never_captures(params):

@@ -125,6 +125,36 @@ def test_pipelined_replays_equal_predict(weights):
     assert pred.rollouts == {"replayed": 5, "eager": 1, "captured": 1}
 
 
+@pytest.mark.parametrize("quantize", [False, True], ids=["f32", "uint8"])
+def test_staged_answers_are_fresh_and_reused_buffers_stay_one(weights,
+                                                              quantize):
+    """Requests of one shape, full and padded, served eagerly, by the
+    capture and by replay through one set of pinned staging buffers: each
+    answer equals a fresh predictor's eager run bit for bit, shares no
+    memory with the buffers and is unchanged after the next two requests;
+    ``predict_pipelined(depth=2)`` equals ``predict``."""
+    hw = (64, 64)
+    reqs = [request(n, hw, seed) for n, seed in ((2, 40), (1, 41), (2, 42))]
+    want = [predictor(weights, True, quantize, 2, hw).predict(*r)
+            for r in reqs]
+    pred = predictor(weights, True, quantize, 2, hw)
+    got = [pred.predict(*r) for r in reqs]
+    kept = [a.copy() for a in got[0]]
+    got += [pred.predict(*r) for r in reqs[1:]]
+    assert_same(got[0], kept)
+    (st,) = pred._staging.values()
+    assert all(buf.is_pinned() for buf in (st.x, st.frames, st.layouts))
+    for g, w in zip(got, want + want[1:]):
+        assert_same(g, w)
+        assert not any(np.shares_memory(a, buf.numpy()) for a in g
+                       for buf in (st.x, st.frames, st.layouts))
+    piped = list(pred.predict_pipelined(iter(reqs), depth=2))
+    for g, w in zip(piped, want):
+        assert_same(g, w)
+    assert pred.staging == {"staged": 8, "buffers": 1}
+    assert pred.rollouts == {"replayed": 7, "eager": 1, "captured": 1}
+
+
 def test_mesh_replicas_graph_on_their_own(weights):
     """A mesh of two replicas (on the one card) captures a chain of graphs
     a replica and replays both; its answers equal its eager ones."""

@@ -4,9 +4,16 @@ package's ``serving.py``).
 One ``LayoutPredictor`` owns a GridNet on one device and answers batched
 requests at a fixed batch: a smaller request is padded to it by repeating
 its last example, and the padding is sliced off on the device before the
-fetch. A request goes up as one packed array and comes back as one packed
-array; with ``quantize_transfer`` both are uint8 (frames at 1/255, layout
-ids exact while ``n_classes <= 256``).
+fetch. A request goes up as one packed array, cast straight into the
+upload buffer of a staging set (``_Staging``) kept for its packed shape
+and reused by every request of that shape. Its answer is written on the
+device as frames (f32) and int32 layouts, copied into the set's fetch
+buffers and from them into fresh arrays, whose pages are written while
+the device still works on the answer; no answer shares memory with a
+buffer the next request refills. The buffers are pinned where the first
+device is a card, and both copies to and from it are asynchronous. With
+``quantize_transfer`` both ways are uint8 (frames at 1/255, layout ids
+exact while ``n_classes <= 256``).
 
 ``use_edges=True`` serves the 10-channel model as it was trained: the
 frozen HNED edge net runs on the seed frames and on every generated frame
@@ -29,10 +36,12 @@ captures a chain of graphs in one memory pool, one for the input stage (the
 uint8 cast, the normalisation, the seed frames' edges) and one a generated
 frame, each reading the static outputs of the one before, and every later
 one uploads into the chain's static input and replays it. The frames are
-stacked and packed eagerly after the replay, so a result outside the pool
+stacked and cast eagerly after the replay, so a result outside the pool
 outlives the next request's replay. A capture that fails raises.
 ``rollouts`` counts the requests served by replay and by an eager run, and
-the captures.
+the captures; ``staging`` the requests served through the staging buffers
+(``staged``) and the staging sets allocated (``buffers``, one a packed
+shape).
 
 Under a profiler each request records ``serve.request``, holding
 ``serve.pack``, ``serve.upload``, ``serve.rollout`` (the rollout's
@@ -128,6 +137,8 @@ class LayoutPredictor:
                 model, hned_r, n_frames=n_frames, use_edges=use_edges,
                 upsample=upsample, edge_scale=edge_scale), self._inputs))
         self.rollouts = {"replayed": 0, "eager": 0, "captured": 0}
+        self._staging = {}
+        self.staging = {"staged": 0, "buffers": 0}
 
     @classmethod
     def from_checkpoint(cls, path: str, arch: str = "GridNet",
@@ -150,14 +161,17 @@ class LayoutPredictor:
         return i1, i2, x[..., 6:7], x[..., 7:8]
 
     @torch.inference_mode()
-    def _serve(self, x: np.ndarray, n: int) -> torch.Tensor:
-        """One packed request on the device(s) -> one packed result on the
-        first one."""
+    def _serve(self, st: "_Staging", n: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One packed request, from its staging set, on the device(s) ->
+        its frames and layouts on the first one, in the dtypes they are
+        fetched in."""
         with annotate("serve.upload"):
-            shards = ([self._replicas[0].upload(torch.from_numpy(x))]
-                      if self.mesh is None
+            shards = ([self._replicas[0].upload(st.x)] if self.mesh is None
                       else [rep.upload(sh["x"]) for rep, sh in zip(
-                          self._replicas, shard_batch({"x": x}, self.mesh))])
+                          self._replicas, shard_batch({"x": st.x},
+                                                      self.mesh))])
+            st.uploaded()
         with annotate("serve.rollout"):
             outs, how = zip(*(rep.run(part) for rep, part
                               in zip(self._replicas, shards)))
@@ -169,56 +183,74 @@ class LayoutPredictor:
                 imgs, segs = (torch.cat([o[j].to(self.device) for o in outs])
                               for j in (0, 1))
             f = denormalize_image(imgs[:n]).clamp(0.0, 1.0)
-            lay = segs[:n]
+            lay = segs[:n, ..., 0]   # f32 ids, exact in any integer type
             if self._quantized_serve:
-                return torch.cat([(f * 255.0 + 0.5).to(torch.uint8),
-                                  lay.to(torch.uint8)], dim=-1)
-            return torch.cat([f, lay], dim=-1)
+                return (f * 255.0 + 0.5).to(torch.uint8), lay.to(torch.uint8)
+            return f, lay.to(torch.int32)
 
-    def _enqueue(self, img1, img2, seg1, seg2) -> torch.Tensor:
-        """Pack one request, upload it and launch its rollout."""
+    def _enqueue(self, img1, img2, seg1, seg2):
+        """Pack one request, upload it and launch its rollout: (its frames
+        and layouts on the device, its staging set)."""
         with annotate("serve.pack"):
-            x, n = self._pack_request(img1, img2, seg1, seg2)
-        return self._serve(x, n)
+            st, n = self._pack_request(img1, img2, seg1, seg2)
+        return self._serve(st, n), st
 
-    def _fetch(self, out: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
-        """Fetch one packed result to the host and decode it."""
+    def _fetch(self, out, st: "_Staging") -> Tuple[np.ndarray, np.ndarray]:
+        """Fetch one answer, its frames and layouts on the device, through
+        the fetch buffers of its staging set, then copy it out of them into
+        fresh arrays, made while the device still works on the answer."""
+        frames, layouts = out
         with annotate("serve.fetch"):
-            out = out.cpu().numpy()
+            st.fetch(frames, layouts)
+            fresh = (_fresh(frames.shape, torch.float32),
+                     _fresh(layouts.shape, torch.int32))
+            out = st.fetched(frames.shape[0]), fresh
         with annotate("serve.decode"):
             return self._decode_out(out)
 
     def _pack_request(self, img1, img2, seg1, seg2):
-        """Host-side packing of one request into the single upload array."""
+        """Host-side packing of one request straight into the upload buffer
+        of the staging set of its packed shape, once that buffer's last
+        upload is done: each input cast into its channels of rows ``0..n``
+        and its last example into the padding rows; with
+        ``quantize_transfer`` the frames as ``x * 255 + 0.5`` in f32, then
+        cast to uint8. Returns (the set, ``n``)."""
         n = img1.shape[0]
         if n > self.batch:
             raise ValueError(f"request batch {n} > compiled batch "
                              f"{self.batch}; shard the request")
+        shape = (self.batch,) + tuple(img1.shape[1:3]) + (8,)
+        st = self._staging.get(shape)
+        if st is None:
+            st = self._staging[shape] = _Staging(
+                shape, self._quantized_serve, self.n_frames, self.device)
+            self.staging["buffers"] += 1
+        st.wait_uploaded()
+        for lo, img in ((0, img1), (3, img2)):
+            img = np.asarray(img, np.float32)
+            if self._quantized_serve:
+                img = img * 255.0 + 0.5
+            _put_rows(st.x[..., lo:lo + 3], img, n)
+        for c, seg in ((6, seg1), (7, seg2)):
+            seg = np.asarray(seg)
+            if self._quantized_serve:   # ids through f32, as the frames
+                seg = seg.astype(np.float32)
+            _put_rows(st.x[..., c], seg, n)
+        self.staging["staged"] += 1
+        return st, n
 
-        def pad(x):
-            if x.shape[0] == self.batch:
-                return x
-            return np.concatenate(
-                [x, np.repeat(x[-1:], self.batch - x.shape[0], axis=0)])
-
-        x = np.concatenate(
-            [pad(np.asarray(img1, np.float32)),
-             pad(np.asarray(img2, np.float32)),
-             pad(np.asarray(seg1, np.float32))[..., None],
-             pad(np.asarray(seg2, np.float32))[..., None]], axis=-1)
+    def _decode_out(self, out) -> Tuple[np.ndarray, np.ndarray]:
+        """((frames, layouts) fetched, views of the fetch buffers, (f32,
+        int32) fresh arrays of their shapes) -> the fresh arrays, holding
+        the frames (from uint8 at 1/255 with ``quantize_transfer``) and
+        the layouts."""
+        staged, fresh = out
+        frames, layouts = (t.numpy() for t in fresh)
+        for dst, src in zip(fresh, staged):
+            _copy(dst, src.numpy())
         if self._quantized_serve:
-            x = np.concatenate(
-                [x[..., 0:6] * 255.0 + 0.5, x[..., 6:8]],
-                axis=-1).astype(np.uint8)
-        return x, n
-
-    def _decode_out(self, out: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """Host-side decode of the single fetched array."""
-        if self._quantized_serve:
-            frames = out[..., :3].astype(np.float32) / 255.0
-        else:
-            frames = out[..., :3]
-        return frames, out[..., 3].astype(np.int32)
+            np.divide(frames, 255.0, out=frames)
+        return frames, layouts
 
     def predict(self, img1: np.ndarray, img2: np.ndarray,
                 seg1: np.ndarray, seg2: np.ndarray
@@ -226,7 +258,7 @@ class LayoutPredictor:
         """img*: (N, H, W, 3) RGB in [0,1]; seg*: (N, H, W) int class ids.
         Returns (frames (N, T, H, W, 3) in [0,1], layouts (N, T, H, W))."""
         with annotate("serve.request"):
-            return self._fetch(self._enqueue(img1, img2, seg1, seg2))
+            return self._fetch(*self._enqueue(img1, img2, seg1, seg2))
 
     def predict_pipelined(self, requests, depth: int = 2):
         """Yield one (frames, layouts) per request, in order, with up to
@@ -258,11 +290,97 @@ class LayoutPredictor:
         inflight = deque()
         for req in requests:
             if len(inflight) >= depth:
-                yield self._fetch(inflight.popleft())
+                yield self._fetch(*inflight.popleft())
             with annotate("serve.request"):
                 inflight.append(self._enqueue(*req))
         while inflight:
-            yield self._fetch(inflight.popleft())
+            yield self._fetch(*inflight.popleft())
+
+
+# A host copy into a destination of at least this many bytes runs on the
+# intra-op threads, a smaller one on the calling thread. On a shared H100
+# host a b16 answer (134 MB into fresh pages) took 26-35 ms threaded
+# against 53-57 on one thread, but waking the idle pool for a b1 request's
+# copies (under 7 MB each) put 10-23 ms into its p95.
+_THREADED_COPY_BYTES = 8 << 20
+
+
+def _copy(dst: torch.Tensor, src: np.ndarray) -> None:
+    """``src`` cast and broadcast into the host tensor ``dst``."""
+    if dst.numel() * dst.element_size() < _THREADED_COPY_BYTES:
+        np.copyto(dst.numpy(), src, casting="unsafe")
+        return
+    if any(st < 0 for st in src.strides):
+        src = np.ascontiguousarray(src)
+    dst.copy_(torch.from_numpy(src))
+
+
+def _put_rows(dst: torch.Tensor, src: np.ndarray, n: int) -> None:
+    """``src`` cast into rows ``0..n`` of ``dst`` and its last row into the
+    rest."""
+    _copy(dst[:n], src)
+    _copy(dst[n:], src[-1:])
+
+
+def _fresh(shape, dtype: torch.dtype) -> torch.Tensor:
+    """A fresh host tensor with its pages written (zeros): a later copy
+    into it finds them mapped. Filling fresh pages cost a b16 answer more
+    than copying into them."""
+    dst = torch.empty(shape, dtype=dtype)
+    _copy(dst, np.zeros((), dst.numpy().dtype))
+    return dst
+
+
+class _Staging:
+    """The host buffers of one packed request shape, reused by every request
+    of it: ``x``, the packed upload, and ``frames`` and ``layouts``, the
+    answer's rows at the fixed batch in the dtypes they are fetched in
+    (uint8 both with ``quantize_transfer``, else f32 and int32). On a card
+    they are pinned and both copies are asynchronous on the device's
+    current stream: an event after the upload, which a refill of ``x``
+    waits on, and one after the fetch, which ``fetched`` waits on before
+    it hands the rows out."""
+
+    def __init__(self, shape, quantized: bool, n_frames: int,
+                 dev: torch.device):
+        b, h, w, _ = shape
+        img, ids = ((torch.uint8, torch.uint8) if quantized
+                    else (torch.float32, torch.int32))
+        pin = dev.type == "cuda"
+        self.dev = dev
+        self.x = torch.empty(shape, dtype=img, pin_memory=pin)
+        self.frames = torch.empty((b, n_frames, h, w, 3), dtype=img,
+                                  pin_memory=pin)
+        self.layouts = torch.empty((b, n_frames, h, w), dtype=ids,
+                                   pin_memory=pin)
+        self._uploaded = torch.cuda.Event() if pin else None
+        self._fetched = torch.cuda.Event() if pin else None
+
+    def uploaded(self) -> None:
+        """Mark the copies out of ``x`` just enqueued."""
+        if self._uploaded is not None:
+            self._uploaded.record(torch.cuda.current_stream(self.dev))
+
+    def wait_uploaded(self) -> None:
+        """Wait until ``x`` may be refilled."""
+        if self._uploaded is not None:
+            self._uploaded.synchronize()
+
+    def fetch(self, frames: torch.Tensor, layouts: torch.Tensor) -> None:
+        """Copy ``frames`` and ``layouts`` (n rows, on the device) into the
+        first n rows of the fetch buffers."""
+        n = frames.shape[0]
+        self.frames[:n].copy_(frames, non_blocking=True)
+        self.layouts[:n].copy_(layouts, non_blocking=True)
+        if self._fetched is not None:
+            self._fetched.record(torch.cuda.current_stream(self.dev))
+
+    def fetched(self, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Wait for the last ``fetch``: its n rows of the fetch buffers,
+        which the next fetch overwrites."""
+        if self._fetched is not None:
+            self._fetched.synchronize()
+        return self.frames[:n], self.layouts[:n]
 
 
 class _Replica:
@@ -281,9 +399,11 @@ class _Replica:
 
     def upload(self, x: torch.Tensor) -> torch.Tensor:
         """Packed rows ``x`` on this device: into the static input of the
-        graphs of their shape and dtype where there are graphs."""
+        graphs of their shape and dtype where there are graphs. The copy
+        from a pinned ``x`` is asynchronous."""
         g = self.graphs.get((tuple(x.shape), x.dtype))
-        return x.to(self.dev) if g is None else g.x.copy_(x)
+        return (x.to(self.dev, non_blocking=True) if g is None
+                else g.x.copy_(x, non_blocking=True))
 
     def run(self, x: torch.Tensor):
         """((frames, layouts), how) of packed rows ``x`` on this device;
