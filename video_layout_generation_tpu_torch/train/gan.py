@@ -19,6 +19,16 @@ CoordGridNet generator runs kernels A and B once a step, in its one
 forward (31 and 15 launches), with the library's VJP as their backward
 (``train/steps.py``).
 
+While a profiler records, the step records the spans ``step.inputs``
+(decode, edges, flip, the real pair), ``step.forward`` (the generator's
+forward), ``gan.disc`` (both D forwards, D's loss and gradients),
+``gan.disc_update`` (D's all-reduce and optimizer), ``gan.adv`` (the frozen
+D's forward and G's four loss terms), ``step.backward`` (G's gradients) and
+``step.update`` (G's optimizer) (``utils/profiling.py:annotate``). The
+returned step counts its D forwards by role in ``gan_step.disc_forwards``
+(``fake``, ``real``, ``adv``, and ``penalty`` under wgangp), over its life;
+the Trainer reports an epoch's counts.
+
 Under a process group each rank's D and G losses are its shares of the
 global batch's (plain means), and each update sums its gradients and
 metric shares over the ranks in one flat all-reduce: two a step. A
@@ -39,9 +49,13 @@ from ..losses.pixel import l1_loss
 from .assemble import normalize_image, normalize_model_output
 from ..parallel.collectives import plain_share, sum_over_ranks
 from ..parallel.mesh import process_count
+from ..utils.profiling import annotate
 from .state import TrainState
 from .steps import (_maybe_flip, _to_device, decode_batch, flip_coin,
                     place_nets, prepare_inputs)
+
+
+DISC_ROLES = ("fake", "real", "adv", "penalty")
 
 
 @dataclass
@@ -97,11 +111,14 @@ def make_gan_train_step(gen: torch.nn.Module, disc: torch.nn.Module,
     dev = place_nets(gen, hned, combined_loss, device)
     disc.to(dev)
 
-    def run_d(z, update_stats: bool = True):
+    disc_forwards = dict.fromkeys(DISC_ROLES, 0)
+
+    def run_d(z, role: str, update_stats: bool = True):
+        disc_forwards[role] += 1
         return disc(z, train=disc_batch_stats, update_stats=update_stats)
 
     def gan_step(state: GanTrainState, batch):
-        with torch.no_grad():
+        with annotate("step.inputs"), torch.no_grad():
             batch = decode_batch(_to_device(batch, dev))
             x, f3n = prepare_inputs(hned, batch)
             s3 = batch["seg3"]
@@ -113,33 +130,38 @@ def make_gan_train_step(gen: torch.nn.Module, disc: torch.nn.Module,
                                                    f2n)
             real_pair = torch.cat([f1n, f2n, f3n], dim=-1)
 
-        with torch.enable_grad():
-            # ---- the generator forward, once ----------------------------
+        # ---- the generator forward, once --------------------------------
+        with annotate("step.forward"), torch.enable_grad():
             seg_logits, img = gen(x)
             img_n = normalize_model_output(img)
             fake_detached = torch.cat([f1n, f2n, img_n.detach()], dim=-1)
 
-            # ---- D update -----------------------------------------------
-            loss_d_fake = gan_loss(run_d(fake_detached), False, gan_mode)
-            loss_d_real = gan_loss(run_d(real_pair), True, gan_mode)
+        # ---- D update ---------------------------------------------------
+        with annotate("gan.disc"), torch.enable_grad():
+            loss_d_fake = gan_loss(run_d(fake_detached, "fake"), False,
+                                   gan_mode)
+            loss_d_real = gan_loss(run_d(real_pair, "real"), True, gan_mode)
             loss_d = 0.5 * (loss_d_fake + loss_d_real)
             if gan_mode == "wgangp":
                 pen, _ = gradient_penalty(
-                    lambda z: run_d(z, update_stats=False), real_pair,
-                    fake_detached, gp_generator, lambda_gp=lambda_gp)
+                    lambda z: run_d(z, "penalty", update_stats=False),
+                    real_pair, fake_detached, gp_generator,
+                    lambda_gp=lambda_gp)
                 loss_d = loss_d + pen
             d_grads = _grads(loss_d, state.disc)
-        d_grads, d_metrics = sum_over_ranks(d_grads, _shares(
-            {"loss_d": loss_d, "loss_d_fake": loss_d_fake,
-             "loss_d_real": loss_d_real}))
-        state.disc.apply_gradients(d_grads)
+        with annotate("gan.disc_update"):
+            d_grads, d_metrics = sum_over_ranks(d_grads, _shares(
+                {"loss_d": loss_d, "loss_d_fake": loss_d_fake,
+                 "loss_d_real": loss_d_real}))
+            state.disc.apply_gradients(d_grads)
 
-        with torch.enable_grad():
-            # ---- G update, against the updated D ------------------------
+        # ---- G update, against the updated D ----------------------------
+        with annotate("gan.adv"), torch.enable_grad():
             for p in state.disc.params.values():
                 p.requires_grad_(False)
             try:
-                pred_fake = run_d(torch.cat([f1n, f2n, img_n], dim=-1))
+                pred_fake = run_d(torch.cat([f1n, f2n, img_n], dim=-1),
+                                  "adv")
             finally:
                 for p in state.disc.params.values():
                     p.requires_grad_(True)
@@ -148,12 +170,15 @@ def make_gan_train_step(gen: torch.nn.Module, disc: torch.nn.Module,
             loss_style = combined_loss(img_n, f3n) * w_style
             loss_seg = cross_entropy_loss(seg_logits, s3) * w_seg
             loss_g = loss_gan + loss_l1 + loss_style + loss_seg
+        with annotate("step.backward"), torch.enable_grad():
             g_grads = _grads(loss_g, state.gen)
         g_grads, g_metrics = sum_over_ranks(g_grads, _shares(
             {"loss_gan": loss_gan, "loss_l1": loss_l1,
              "loss_style": loss_style, "loss_seg": loss_seg,
              "loss": loss_g}))
-        state.gen.apply_gradients(g_grads)
+        with annotate("step.update"):
+            state.gen.apply_gradients(g_grads)
         return state, {**g_metrics, **d_metrics}
 
+    gan_step.disc_forwards = disc_forwards
     return gan_step

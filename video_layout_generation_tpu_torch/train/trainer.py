@@ -346,6 +346,9 @@ class Trainer:
         # the train loader's HostLoader (None on the device-data path): its
         # count of the batches its workers assembled goes into the epoch line
         self._train_host = getattr(self.train_loader, "loader", None)
+        # the GAN step's D forwards by role (None for the other steps): an
+        # epoch's count goes into the epoch line too
+        self._disc_forwards = getattr(self._train_step, "disc_forwards", None)
 
         # --- observability ----------------------------------------------
         tb_dir = cfg.path if cfg.path and is_primary() else None
@@ -453,6 +456,7 @@ class Trainer:
         load_s = comp_s = 0.0
         n_batches = len(self.train_loader)
         metrics = None
+        d_before = dict(self._disc_forwards or {})
         batches = iter(self.train_loader)
         for i in itertools.count():
             with annotate("train.load"):
@@ -474,7 +478,8 @@ class Trainer:
         # epoch end: one fetch, so that every queued step has run
         if metrics is not None:
             float(metrics["loss"])
-        self._end_epoch(n_batches, time.perf_counter() - t0, load_s, comp_s)
+        self._end_epoch(n_batches, time.perf_counter() - t0, load_s, comp_s,
+                        d_before)
 
     def _log_step(self, i: int, n_batches: int, metrics, batch,
                   timer: StepTimer):
@@ -498,23 +503,30 @@ class Trainer:
             self._log_train_images(batch)
 
     def _end_epoch(self, steps: int, wall: float, load_s: float,
-                   comp_s: float):
+                   comp_s: float, d_before: Dict[str, int]):
         self.epoch_stats = dict(steps=steps, wall_s=wall, load_s=load_s,
                                 comp_s=comp_s,
                                 samples=steps * self.cfg.batch_size)
-        assembled = ""
+        extra = ""
         if self._train_host is not None:
             by = self._train_host.assembled
             self.epoch_stats.update(assembled_by_workers=by["workers"],
                                     assembled_on_consumer=by["consumer"])
-            assembled = (", batches assembled by the loader's workers %d, "
-                         "on its consumer's thread %d" % (by["workers"],
-                                                          by["consumer"]))
+            extra = (", batches assembled by the loader's workers %d, "
+                     "on its consumer's thread %d" % (by["workers"],
+                                                      by["consumer"]))
+        if self._disc_forwards is not None:
+            moved = {role: n - d_before[role]
+                     for role, n in self._disc_forwards.items()}
+            self.epoch_stats.update({f"disc_forwards_{role}": n
+                                     for role, n in moved.items()})
+            extra += ", D forwards %s" % " ".join(
+                "%s %d" % kv for kv in moved.items())
         rate = self.epoch_stats["samples"] / max(wall, 1e-9)
         self.logger.info(
             "Epoch [%d/%d] %d steps in %.3fs (load %.3fs, comp %.3fs), "
             "%.1f samples/s%s" % (self.epoch, self.cfg.epochs, steps, wall,
-                                  load_s, comp_s, rate, assembled))
+                                  load_s, comp_s, rate, extra))
         self.logger.debug("epoch drained at step %d" % self.model_state.step)
 
     def _log_per_step(self, per_step: torch.Tensor):
