@@ -257,8 +257,15 @@ def test_the_trainer_reports_an_epoch_s_d_forwards(tmp_path):
                 if k.startswith("disc_forwards_")} == {
             "disc_forwards_fake": 2, "disc_forwards_real": 2,
             "disc_forwards_adv": 2, "disc_forwards_penalty": 0}
+        # G's and D's grouped optimizer updates, over every trained tensor
+        n = len(t.state.gen.params) + len(t.state.disc.params)
+        assert (t.epoch_stats["optimizer_updates"],
+                t.epoch_stats["optimizer_tensors"],
+                t.epoch_stats["optimizer_groups"]) == (4, 2 * n, 4)
     log = (tmp_path / "experiment.log").read_text()
     assert log.count("D forwards fake 2 real 2 adv 2 penalty 0") == 2
+    assert log.count("optimizer updates 4 over %d tensors in 4 groups"
+                     % (2 * n)) == 2
 
 
 def test_this_file_loads_no_jax():

@@ -145,6 +145,11 @@ def test_trainer_epoch_records_the_loader_and_step_spans(tmp_path):
     # the decode workers assembled both batches
     assert (t.epoch_stats["assembled_by_workers"],
             t.epoch_stats["assembled_on_consumer"]) == (2, 0)
+    # one grouped optimizer update a step, over every trained tensor
+    assert (t.epoch_stats["optimizer_updates"],
+            t.epoch_stats["optimizer_tensors"],
+            t.epoch_stats["optimizer_groups"]) == (2, 2 * len(t.state.params),
+                                                   2)
     assert len({s[3] for s in spans}) == 1
     loads, steps = named(spans, "train.load"), named(spans, "train.step")
     assert len(steps) == 2 and len(named(spans, "train.log")) == 2

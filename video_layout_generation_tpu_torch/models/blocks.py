@@ -16,7 +16,8 @@ before it fused in. A block takes the grid's additive fusion as
 
 Training: with autograd on, a block hands the kernels its live biases and
 PReLU slopes and, where the kernel requires grad, the differentiable cast
-``kernel.to(dtype)``; the kernels' autograd Functions then take every
+``kernel.to(dtype)`` (``layers.cast_param``: its gradient comes back
+contiguous, as the kernel is); the kernels' autograd Functions then take every
 gradient from the library's VJP (cuDNN on the card, in the activation
 dtype; ``ops/kernels/conv3x3.py``, ``ops/kernels/lateral.py``), so the
 forward stays kernels A and B. Without grad (serving, validation) or with a
@@ -36,6 +37,7 @@ from ..ops.coords import add_coord_channels
 from ..ops.kernels import fused_lateral, prelu_conv3x3
 from ..ops.kernels.conv3x3 import prelu_plain
 from ..ops.resize import upsample2x
+from .layers import cast_param
 
 
 def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -72,7 +74,7 @@ class Conv3x3(nn.Module):
         parameter changes (its version counter moves: an optimizer's
         in-place update)."""
         if torch.is_grad_enabled() and self.kernel.requires_grad:
-            return self.kernel.to(dtype)
+            return cast_param(self.kernel, dtype)
         k = self.kernel.detach()
         if k.dtype == dtype:
             return k

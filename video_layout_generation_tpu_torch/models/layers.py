@@ -20,6 +20,32 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class _ParamCast(torch.autograd.Function):
+    """``p.to(dtype)`` whose backward casts the gradient into a contiguous
+    tensor, as the parameter is, where autograd's cast keeps the layout of
+    the library's weight gradient: the optimizer's grouped calls
+    (``train/state.py``) take a tensor in their launches only where its
+    gradient is laid out as the tensor is, else one launch a call."""
+
+    @staticmethod
+    def forward(ctx, p, dtype):
+        ctx.dtype = p.dtype
+        return p.to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype, memory_format=torch.contiguous_format), None
+
+
+def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The differentiable cast of a (contiguous) parameter to ``dtype``,
+    its gradient contiguous (``_ParamCast``); a plain ``to`` where no
+    gradient flows or the dtype is the parameter's."""
+    if p.dtype == dtype or not (torch.is_grad_enabled() and p.requires_grad):
+        return p.to(dtype)
+    return _ParamCast.apply(p, dtype)
+
+
 class Conv(nn.Module):
     """flax ``nn.Conv(features, (k, k), strides, padding,
     kernel_dilation)`` with symmetric zero padding ``padding`` (0 is flax's
@@ -42,8 +68,8 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # (Co, kh, kw, Ci) in memory, viewed (Co, Ci, kh, kw): channels_last
-        w = self.kernel.to(x.dtype).permute(3, 0, 1, 2).contiguous().permute(
-            0, 3, 1, 2)
+        w = cast_param(self.kernel, x.dtype).permute(
+            3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
         b = None if self.bias is None else self.bias.to(x.dtype)
         y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=self.stride,
                      padding=self.padding, dilation=self.dilation)
@@ -86,7 +112,7 @@ class ConvTranspose(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # (Ci, kh, kw, Co) in memory, viewed (Ci, Co, kh, kw)
-        w = self.kernel.to(x.dtype).flip(0, 1).permute(
+        w = cast_param(self.kernel, x.dtype).flip(0, 1).permute(
             2, 0, 1, 3).contiguous().permute(0, 3, 1, 2)
         b = None if self.bias is None else self.bias.to(x.dtype)
         y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, b,

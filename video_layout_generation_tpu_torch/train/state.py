@@ -14,13 +14,18 @@ functional copy would double the memory traffic of the update.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Mapping, Optional, Union
+from typing import Dict, List, Mapping, Optional, Union
 
 import torch
 from torch import nn
 
 B2 = 0.999
 EPS = 1e-8
+
+# Since the process started: the updates made, the parameter tensors they
+# covered and the (device, dtype) groups they ran as; the Trainer reports an
+# epoch's in its epoch line and ``epoch_stats``.
+GROUPED = {"updates": 0, "tensors": 0, "groups": 0}
 
 
 @dataclass(frozen=True)
@@ -43,30 +48,58 @@ class Optimizer:
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor],
                grads: Mapping[str, torch.Tensor], state: dict) -> None:
-        """One step on ``params`` and ``state``, in place."""
-        lr = state["learning_rate"]
+        """One step on ``params`` and ``state``, in place, as a few grouped
+        (``torch._foreach_*``) calls over each (device, dtype) group of
+        tensors: each call is the per-tensor op it replaces, element for
+        element, so the bits are those of a loop over the tensors. (Not for
+        bf16 parameters on the CPU, whose grouped in-place multiply rounds
+        the number to bf16 first; parameters are f32 on every path.)"""
         state["count"] += 1
+        groups: Dict[tuple, List[str]] = {}
+        for k, p in params.items():
+            groups.setdefault((p.device, p.dtype), []).append(k)
+        for keys in groups.values():
+            self._update_group(keys, params, grads, state)
+        GROUPED["updates"] += 1
+        GROUPED["tensors"] += len(params)
+        GROUPED["groups"] += len(groups)
+
+    def _update_group(self, keys: List[str],
+                      params: Mapping[str, torch.Tensor],
+                      grads: Mapping[str, torch.Tensor], state: dict) -> None:
+        lr = state["learning_rate"]
         t = state["count"]
         b1 = self.beta1
-        for k, p in params.items():
-            g = grads[k].to(p.dtype)
-            if self.name == "sgd":
-                p.add_(g, alpha=-lr)
-                continue
-            mu_kept, nu = state["mu"][k], state["nu"][k]
-            # a copy only where the moment is kept in reduced precision
-            mu = mu_kept.to(p.dtype)
-            mu.mul_(b1).add_(g, alpha=1 - b1)
-            mu_hat = mu / (1 - b1 ** t)
-            if self.name == "adam":
-                nu.mul_(B2).addcmul_(g, g, value=1 - B2)
-                denom = (nu / (1 - B2 ** t)).sqrt_().add_(EPS)
-            else:
-                torch.maximum(nu * B2, g.abs() + EPS, out=nu)
-                denom = nu
-            p.addcdiv_(mu_hat, denom, value=-lr)
-            if mu is not mu_kept:
-                mu_kept.copy_(mu)
+        ps = [params[k] for k in keys]
+        gs = [grads[k].to(p.dtype) for k, p in zip(keys, ps)]
+        if self.name == "sgd":
+            torch._foreach_add_(ps, gs, alpha=-lr)
+            return
+        mus_kept = [state["mu"][k] for k in keys]
+        nus = [state["nu"][k] for k in keys]
+        mus = mus_kept
+        if mus_kept[0].dtype != ps[0].dtype:
+            # f32 copies only where the first moment is kept in reduced
+            # precision
+            mus = [torch.empty_like(p) for p in ps]
+            torch._foreach_copy_(mus, mus_kept)
+        torch._foreach_mul_(mus, b1)
+        torch._foreach_add_(mus, gs, alpha=1 - b1)
+        mu_hats = torch._foreach_div(mus, 1 - b1 ** t)
+        torch._foreach_mul_(nus, B2)
+        if self.name == "adam":
+            torch._foreach_addcmul_(nus, gs, gs, value=1 - B2)
+            denoms = torch._foreach_div(nus, 1 - B2 ** t)
+            torch._foreach_sqrt_(denoms)
+            torch._foreach_add_(denoms, EPS)
+        else:
+            floors = torch._foreach_abs(gs)
+            torch._foreach_add_(floors, EPS)
+            torch._foreach_maximum_(nus, floors)
+            denoms = nus
+        torch._foreach_addcdiv_(ps, mu_hats, denoms, value=-lr)
+        if mus is not mus_kept:
+            torch._foreach_copy_(mus_kept, mus)
 
 
 def make_optimizer(optimizer: str = "adam", lr: float = 2e-4,

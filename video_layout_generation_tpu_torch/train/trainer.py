@@ -78,8 +78,8 @@ from .multistep import (is_window_batch, make_multistep_train_step,
                         window_to_triplet_batch)
 from .rollout import make_rollout_fn
 from .scheduled import make_scheduled_train_step, scheduled_p
-from .state import (TrainState, current_lr, epoch_decayed_lr, make_optimizer,
-                    set_lr)
+from .state import (GROUPED, TrainState, current_lr, epoch_decayed_lr,
+                    make_optimizer, set_lr)
 from .steps import decode_batch, make_eval_step, make_train_step
 
 
@@ -457,6 +457,7 @@ class Trainer:
         n_batches = len(self.train_loader)
         metrics = None
         d_before = dict(self._disc_forwards or {})
+        g_before = dict(GROUPED)
         batches = iter(self.train_loader)
         for i in itertools.count():
             with annotate("train.load"):
@@ -479,7 +480,7 @@ class Trainer:
         if metrics is not None:
             float(metrics["loss"])
         self._end_epoch(n_batches, time.perf_counter() - t0, load_s, comp_s,
-                        d_before)
+                        d_before, g_before)
 
     def _log_step(self, i: int, n_batches: int, metrics, batch,
                   timer: StepTimer):
@@ -503,7 +504,8 @@ class Trainer:
             self._log_train_images(batch)
 
     def _end_epoch(self, steps: int, wall: float, load_s: float,
-                   comp_s: float, d_before: Dict[str, int]):
+                   comp_s: float, d_before: Dict[str, int],
+                   g_before: Dict[str, int]):
         self.epoch_stats = dict(steps=steps, wall_s=wall, load_s=load_s,
                                 comp_s=comp_s,
                                 samples=steps * self.cfg.batch_size)
@@ -522,6 +524,11 @@ class Trainer:
                                      for role, n in moved.items()})
             extra += ", D forwards %s" % " ".join(
                 "%s %d" % kv for kv in moved.items())
+        # the epoch's grouped optimizer updates (``state.GROUPED``)
+        upd = {k: n - g_before[k] for k, n in GROUPED.items()}
+        self.epoch_stats.update({f"optimizer_{k}": n for k, n in upd.items()})
+        extra += (", optimizer updates %d over %d tensors in %d groups"
+                  % (upd["updates"], upd["tensors"], upd["groups"]))
         rate = self.epoch_stats["samples"] / max(wall, 1e-9)
         self.logger.info(
             "Epoch [%d/%d] %d steps in %.3fs (load %.3fs, comp %.3fs), "
